@@ -19,15 +19,27 @@ Phases, one informational line each:
      256 subsets for 2 frames through the plain version on the CPU;
   6. time: the 64-frame chunk after a warm-up, and one assembly per level
      by the kernel (replayed from a CUDA graph, and called eagerly through
-     its wrapper) and by the plain version.
-Then a JSON line with the kernel record and, last, the JSON line
+     its wrapper) and by the plain version;
+  7. experiment kernels: the entry points of experiments.exp_gather and
+     experiments.exp_matmul_overhead at the JAX scripts' sizes, then each
+     kernel against its plain version (the gather bit for bit, the stages
+     within 1e-5 of the sum of |terms| of each output, gram_loop against
+     gram_big), with both times: device time replayed from a CUDA graph,
+     as K1's, and eager time through the wrapper;
+  8. sequence: run_sequence on 32 pairs of drifting 1024x1024 uint8 frames
+     (4096 21x21 subsets, AFFINE/BICUBIC, levels 2-1-0) from an in-memory
+     uint8 source, Eulerian-First and Lagrangian-Previous chunked 32 pairs
+     a call, and strict-Lagrangian pair by pair over 4 pairs; each checked
+     for finite parameters, the hard-error fraction, the known motion and
+     kernel launches, and its first 256 subsets x 2 pairs against the
+     plain version on the CPU.
+Then a JSON line with the kernel records and, last, the JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises and the script
 exits non-zero without those lines; so does a machine without a CUDA
 device, or a directory without the package.
 """
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -36,6 +48,8 @@ REPO = Path(__file__).resolve().parent
 FRAMES = 64
 NUM_SUBSETS = 4096
 CPU_SUBSETS = 256
+SEQ_PAIRS = 32
+STRICT_PAIRS = 4
 
 
 def check(cond, msg):
@@ -109,37 +123,152 @@ def grid_cases(torch, v2, cfgmod, speckle, dev):
                     t(params), bbox))
 
 
-def time_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def experiments_phase(torch, dev, smi):
+    """Drive the two experiment entry points, then hold each kernel against
+    its plain version.  Returns the kernels' JSON records, with device
+    times from CUDA graphs as K1's."""
+    from correlation_tpu_torch.experiments import exp_gather as eg
+    from correlation_tpu_torch.experiments import exp_matmul_overhead as em
+    from correlation_tpu_torch.utils.profiling import cuda_time_ms, graph_ms
+
+    eg.LAUNCHES = 0
+    em.LAUNCHES.update(dict.fromkeys(em.NAMES, 0))
+    check(eg.main() == 0, "exp_gather entry point failed")
+    check(em.main(["loop", "batched", "gram", "vpu"]) == 0,
+          "exp_matmul_overhead entry point failed")
+    launches = {"gather_rows": eg.LAUNCHES}
+    launches.update({f"stage_{n}": em.LAUNCHES[n] for n in em.NAMES})
+    check(all(v > 0 for v in launches.values()),
+          f"an experiment kernel was never launched: {launches}")
+
+    def record(name, src, line, err, fn, plain):
+        rec = {
+            "name": name, "route": "cuda",
+            "source": f"correlation_tpu_torch/csrc/{src}",
+            "replaces": f"experiments/{line}", "launches": launches[name],
+            "max_abs_err": err, "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+        }
+        print(f"experiments: {name} max |kernel - plain| {err:.3e}; kernel "
+              f"{rec['ms']:.4f} ms (graph), {cuda_time_ms(fn):.4f} ms (eager "
+              f"wrapper); plain {rec['plain_ms']:.4f} ms (graph), "
+              f"{cuda_time_ms(plain):.4f} ms (eager) ({smi})")
+        return rec
+
+    src, idx = eg.make_inputs(dev)
+    got, ref = eg.gather_rows(src, idx), eg.gather_rows_reference(src, idx)
+    check(torch.equal(got, ref), "gather_rows differs from its plain version")
+    out = [record("gather_rows", "exp_gather.cu", "exp_gather.py:14", 0.0,
+                  lambda: eg.gather_rows(src, idx),
+                  lambda: eg.gather_rows_reference(src, idx))]
+    lines = {"loop": 71, "batched": 83, "gram_loop": 94, "gram_big": 104,
+             "vpu": 120}
+    grams = {}
+    for name in em.NAMES:
+        inputs = em.make_inputs(name, dev)
+        kernel, plain = em.KERNELS[name], em.REFERENCES[name]
+        got = kernel(*inputs)
+        scale = em.terms_scale(name, inputs)
+        ok, err = em.agreement(got, plain(*inputs), scale)
+        check(ok, f"stage_{name} differs from its plain version by {err}")
+        if name.startswith("gram"):
+            grams[name] = got
+            if len(grams) == 2:
+                ok, _ = em.agreement(grams["gram_loop"], grams["gram_big"],
+                                     scale)
+                check(ok, "gram_loop and gram_big differ")
+        out.append(record(f"stage_{name}", "exp_stages.cu",
+                          f"exp_matmul_overhead.py:{lines[name]}", err,
+                          lambda: kernel(*inputs), lambda: plain(*inputs)))
+        del inputs, got, scale
+        torch.cuda.empty_cache()
+    return out
 
 
-def graph_ms(torch, fn, reps):
-    """Device time per call of `fn` without the host's issue cost: `reps`
-    calls captured in one CUDA graph, the replay timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+class InMemoryFrames:
+    """An in-memory uint8 frame source, staged to the card as uint8."""
+
+    uint8_source = True
+
+    def __init__(self, stack):
+        self.stack = stack
+
+    def __len__(self):
+        return len(self.stack)
+
+    def __getitem__(self, idx):
+        return self.stack[idx]
+
+
+def sequence_phase(torch, dev, smi, v2):
+    """run_sequence in three modes on the drifting sequence."""
+    import numpy as np
+
+    from correlation_tpu_torch.config import (
+        DeformationDescription,
+        ReferenceImage,
+    )
+    from correlation_tpu_torch.problems import sequence_problem
+    from correlation_tpu_torch.sequence import SequenceConfig, run_sequence
+    from correlation_tpu_torch.utils.profiling import SolveMeter
+
+    cfg, frames, pts, centers = sequence_problem(NUM_SUBSETS, SEQ_PAIRS)
+    lagr, strict = (DeformationDescription.LAGRANGIAN,
+                    DeformationDescription.STRICT_LAGRANGIAN)
+    prev = ReferenceImage.PREVIOUS
+    modes = [
+        ("eulerian-first", SequenceConfig(solver=cfg, frame_chunk=SEQ_PAIRS),
+         SEQ_PAIRS, True),
+        ("lagrangian-previous",
+         SequenceConfig(solver=cfg, deformation=lagr, reference=prev,
+                        frame_chunk=SEQ_PAIRS), SEQ_PAIRS, False),
+        ("strict-lagrangian-per-frame",
+         SequenceConfig(solver=cfg, deformation=strict, reference=prev),
+         STRICT_PAIRS, False),
+    ]
+    for name, scfg, pairs, accumulates in modes:
+        meter = SolveMeter()
+        torch.cuda.synchronize()
+        v2.LAUNCHES = 0
+        t0 = time.perf_counter()
+        recs = run_sequence(InMemoryFrames(frames[: pairs + 1]), pts, scfg,
+                            centers=centers, meter=meter, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = v2.LAUNCHES
+        check(len(recs) == pairs, f"{name}: {len(recs)} records of {pairs}")
+        params = np.stack([r.params for r in recs])
+        errors = np.stack([r.error for r in recs])
+        check(launches > 0, f"{name}: the sequence launched no kernel")
+        check(np.isfinite(params).all(), f"{name}: non-finite parameters")
+        hard = float(np.mean((errors != 0) & (errors != 3)))
+        check(hard < 0.005, f"{name}: hard-error fraction {hard}")
+        worst = 0.0
+        for t in range(pairs):
+            v = t + 1.0 if accumulates else 1.0
+            med = np.median(params[t][:, :2], axis=0)
+            worst = max(worst, abs(med[0]), abs(med[1] - v))
+        check(worst <= 0.02, f"{name}: median (u, v) off by {worst}")
+        cpu = run_sequence(InMemoryFrames(frames[:3]), pts[:CPU_SUBSETS],
+                           scfg, centers=centers[:CPU_SUBSETS], device="cpu")
+        g = {k: np.stack([getattr(r, k)[:CPU_SUBSETS] for r in recs[:2]])
+             for k in ("params", "iterations", "error")}
+        c = {k: np.stack([getattr(r, k) for r in cpu])
+             for k in ("params", "iterations", "error")}
+        p_diff = float(np.abs(g["params"] - c["params"]).max())
+        mismatch = int(((g["iterations"] != c["iterations"])
+                        | (g["error"] != c["error"])).sum())
+        check(p_diff <= 1e-3, f"{name}: card vs CPU params differ by {p_diff}")
+        check(mismatch <= 0.01 * g["error"].size,
+              f"{name}: {mismatch} iteration/error mismatches card vs CPU")
+        print(f"sequence {name} ({smi}): {NUM_SUBSETS} subsets x {pairs} "
+              f"pairs in {wall:.3f} s = {NUM_SUBSETS * pairs / wall:.1f} "
+              f"solves/s over the whole run, {meter.solves_per_s:.1f} in the "
+              f"solver calls; {launches} kernel launches, "
+              f"mean iterations {np.stack([r.iterations for r in recs]).mean():.3f}; "
+              f"hard-error fraction {hard}; median (u, v) within {worst:.5f} "
+              f"of the motion; card vs CPU plain ({CPU_SUBSETS} subsets x 2 "
+              f"pairs): max |dp| {p_diff:.3e}, {mismatch} iteration/error "
+              f"mismatches of {g['error'].size}")
 
 
 def main() -> int:
@@ -166,15 +295,17 @@ def main() -> int:
     from correlation_tpu_torch.ops import assemble_v2 as v2
     from correlation_tpu_torch.ops.pyramid import build_pyramid
     from correlation_tpu_torch.problems import dense_grid_problem, speckle
+    from correlation_tpu_torch.utils.profiling import (
+        card_name_and_power,
+        cuda_time_ms,
+        graph_ms,
+    )
 
     dev = torch.device("cuda:0")
 
     # ---- 1. device --------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name_and_power()
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
@@ -293,9 +424,9 @@ def main() -> int:
     per_level = {}
     for lvl, args in sorted(level_args.items()):
         per_level[lvl] = (
-            graph_ms(torch, lambda: v2.fused_assemble(*args), 20),
-            time_ms(torch, lambda: v2.fused_assemble(*args), 20),
-            time_ms(torch, lambda: v2.fused_assemble_reference(*args), 5),
+            graph_ms(lambda: v2.fused_assemble(*args), 20),
+            cuda_time_ms(lambda: v2.fused_assemble(*args), 20),
+            cuda_time_ms(lambda: v2.fused_assemble_reference(*args), 5),
         )
     kernel_ms, _, plain_ms = per_level[0]
     asm = "; ".join(f"L{lvl} kernel {k:.4f} ms (graph), {e:.4f} ms (eager "
@@ -305,7 +436,7 @@ def main() -> int:
           f"{NUM_SUBSETS * FRAMES / chunk_s:.1f} solves/s, mean iterations "
           f"{mean_it:.3f}; one assembly of {NUM_SUBSETS} subsets: {asm}")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_assemble",
         "route": "cuda",
         "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
@@ -314,7 +445,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+
+    # ---- 7. experiment kernels ----------------------------------------------
+    kernels += experiments_phase(torch, dev, smi)
+
+    # ---- 8. the sequence runs -----------------------------------------------
+    sequence_phase(torch, dev, smi, v2)
+
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -22,6 +22,12 @@ from correlation_tpu_torch.engine import (
     correlate_frames,
 )
 from correlation_tpu_torch.ops.pyramid import build_pyramid
+from correlation_tpu_torch.sequence import (
+    FrameRecord,
+    SequenceConfig,
+    run_sequence,
+    run_sequence_from_files,
+)
 
 __all__ = [
     "ErrorCode",
@@ -35,4 +41,8 @@ __all__ = [
     "correlate_frames",
     "make_batch",
     "build_pyramid",
+    "FrameRecord",
+    "SequenceConfig",
+    "run_sequence",
+    "run_sequence_from_files",
 ]

@@ -1,8 +1,8 @@
 """Batched coarse-to-fine Levenberg-Marquardt Gauss-Newton solver (PyTorch).
 
-Port of correlation_tpu/engine.py for the main path: the tiled fused
-assembly, reference-First Eulerian chaining.  The semantics are the JAX
-engine's:
+Port of correlation_tpu/engine.py: the tiled fused assembly, one frame
+pair (correlate) and chained frame pairs in every sequence mode
+(correlate_frames).  The semantics are the JAX engine's:
   * lambda schedule: start 1e-4, x0.4 on a converging step, x10 on a
     diverging one, clamped to [1e-9, 1e9];
   * the saved-parameter step: the next update is computed from the same
@@ -383,6 +383,14 @@ def correlate(
     )
 
 
+def _uv_of(p: torch.Tensor) -> torch.Tensor:
+    """[S, 2] (u, v) columns of the parameters (v = 0 for model U)."""
+    uv = p[:, :2]
+    if uv.shape[1] < 2:
+        uv = torch.nn.functional.pad(uv, (0, 2 - uv.shape[1]))
+    return uv
+
+
 def correlate_frames(
     cfg: SolverConfig,
     frames_stack,
@@ -392,87 +400,140 @@ def correlate_frames(
     reference_first: bool = True,
     stop_frame: bool = False,
     lagrangian: bool = False,
+    float_centers: bool = True,
     first_chunk: bool = True,
     p_seed=None,
     prev_seed=None,
     chi_seed=None,
     it_seed=None,
+    off_seed=None,
+    ucen_seed=None,
+    statics=None,
     device=None,
 ) -> dict:
-    """Chained Eulerian, reference-First solve of K frame pairs.
+    """Chained solve of K frame pairs (correlation_tpu.engine.correlate_frames).
 
-    frames_stack: [K+1, H, W, C] uint8 or float32 frames; element 0 is
-    the undeformed reference, 1..K the deformed frames.  The stack is cast
-    to float32 on `device` (default: its own device, or the CPU for numpy
-    input).  Each pair's guess is the constant-velocity extrapolation
-    p + (p - prev); with first_chunk the first pair starts from guess0.
-    p_seed / prev_seed / chi_seed / it_seed: chained state entering the
-    chunk (interop.chain_seed_from_numpy converts a JAX carry).
+    frames_stack: [K+1, H, W, C] uint8 or float32 frames; element 0 is the
+    chunk's undeformed base (sequence frame 0 for reference-First, the
+    preceding frame otherwise), 1..K the deformed frames.  The stack is
+    cast to float32 on `device` (default: its own device, or the CPU for
+    numpy input).  subsets: a domains.SubsetBatch, the sequence-start
+    geometry for `lagrangian`.
+
+    Chaining, as the JAX scan:
+      * reference_first (Eulerian, reference First): und = stack[0] and the
+        guess is the constant-velocity extrapolation p + (p - prev);
+        otherwise und = stack[i] and the guess is the previous result;
+      * lagrangian: the domain follows the material.  The carry gains the
+        cumulative whole-pixel offset `off` and the float centers `ucen`,
+        advanced by the previous result's (u, v) before every pair but the
+        sequence's first; level l translates the frame-0 level-l point set
+        by floor(off / 2^l + 0.5), and the centers are `ucen` with
+        float_centers, else center0 + off.  The guess is the previous
+        result;
+      * stop_frame: a subset with an error keeps its chained params, chi
+        and iterations (zero params on the sequence's first pair);
+      * first_chunk: the first pair starts from guess0.
+    p_seed / prev_seed / chi_seed / it_seed / off_seed / ucen_seed: the
+    state entering the chunk (defaults: guess0, guess0, zeros, zeros, zeros,
+    subsets.center0); interop converts a JAX carry.  statics: per-level
+    LevelStatic (default: from the stack's shape).
 
     Returns the stacked per-frame params, guess, chi, iterations, error
     ([K, S, ...]), the packed [K, S, NP + 3] output (params, chi,
-    iterations, error), and the carry (p, prev, chi, iterations) for the
-    next chunk.
+    iterations, error), and the carry (p, prev, chi, iterations, plus off
+    and ucen for lagrangian) for the next chunk.
     """
-    if not reference_first or stop_frame or lagrangian:
-        raise NotImplementedError(
-            "only the Eulerian reference-First chain without STOP_FRAME "
-            "is ported"
-        )
     if device is None:
         device = (frames_stack.device if torch.is_tensor(frames_stack)
                   else torch.device("cpu"))
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1
     pyr = build_pyramid(frames, cfg.pyramid.stop)
-    statics = compute_level_statics(cfg, subsets, pyr)
+    if statics is None:
+        statics = compute_level_statics(cfg, subsets, pyr)
     batch = subsets.to_device(device)
     s = batch.num_subsets
     schedule = cfg.pyramid.levels_coarse_to_fine()
 
     # Frame-invariant work leaves the frame loop: the padded deformed
-    # levels of the whole stack, and the reference frame's level arrays.
+    # levels of the whole stack and, for the Eulerian reference-First
+    # chain, the reference frame's level arrays.
     prepped = {
         lvl: v2.prepare_image(pyr[lvl], statics[lvl].tile_h,
                               statics[lvl].tile_w)
         for lvl in schedule
     }
     und0 = [level[0] for level in pyr]
-    base = prepare_levels(
-        cfg, und0, und0, batch.xy, batch.mask, batch.center0, statics,
-        skip_def=True,
-    )
+    base = None
+    if reference_first and not lagrangian:
+        base = prepare_levels(
+            cfg, und0, und0, batch.xy, batch.mask, batch.center0, statics,
+            skip_def=True,
+        )
     n_points0 = batch.mask[0].sum(dim=-1)
 
-    guess0 = _as_f32(guess0, device)
+    def f32(a):
+        return _as_f32(a, device)
+
+    guess0 = f32(guess0)
     if first_chunk:
-        p = guess0 if p_seed is None else _as_f32(p_seed, device)
-        prev = guess0 if prev_seed is None else _as_f32(prev_seed, device)
+        p = guess0 if p_seed is None else f32(p_seed)
+        prev = guess0 if prev_seed is None else f32(prev_seed)
         override = 0
     else:
-        p = _as_f32(p_seed, device)
-        prev = _as_f32(prev_seed, device)
+        p = f32(p_seed)
+        prev = f32(prev_seed)
         override = -1
     chi_c = (torch.zeros(s, dtype=torch.float32, device=device)
-             if chi_seed is None else _as_f32(chi_seed, device))
+             if chi_seed is None else f32(chi_seed))
     it_c = (torch.zeros(s, dtype=torch.int32, device=device)
             if it_seed is None
             else torch.as_tensor(it_seed, device=device).to(torch.int32))
+    if lagrangian:
+        off = (torch.zeros((s, 2), dtype=torch.float32, device=device)
+               if off_seed is None else f32(off_seed))
+        ucen = batch.center0 if ucen_seed is None else f32(ucen_seed)
 
     ys = {"params": [], "guess": [], "chi": [], "iterations": [], "error": []}
     for i in range(k):
-        guess = guess0 if i == override else p + (p - prev)
-        levels = {
-            lvl: base[lvl]._replace(def_img=prepped[lvl][i + 1])
-            for lvl in schedule
-        }
-        res = correlate_prepared(
-            cfg, levels, guess, batch.center0, n_points0, statics
-        )
-        prev, p = p, res.params
-        chi_c, it_c = res.chi, res.iterations
-        for key, val in (("params", res.params), ("guess", guess),
-                         ("chi", res.chi), ("iterations", res.iterations),
+        first = i == override
+        if lagrangian:
+            if not first:
+                # advance_domain between frames: points translate by the
+                # rounded (u, v), centers by the float (u, v).
+                uvp = _uv_of(p)
+                off = off + torch.floor(uvp + 0.5)
+                ucen = ucen + uvp
+            guess = p
+            center_i = ucen if float_centers else batch.center0 + off
+            xy_i = [xy_l + torch.floor(off / float(1 << lvl) + 0.5)[:, None, :]
+                    for lvl, xy_l in enumerate(batch.xy)]
+        else:
+            guess = p + (p - prev) if reference_first else p
+            center_i, xy_i = batch.center0, batch.xy
+        if first:
+            guess = guess0
+        if base is not None:
+            levels = base
+        else:
+            und = und0 if reference_first else [level[i] for level in pyr]
+            levels = prepare_levels(cfg, und, und, xy_i, batch.mask,
+                                    center_i, statics, skip_def=True)
+        levels = {lvl: levels[lvl]._replace(def_img=prepped[lvl][i + 1])
+                  for lvl in schedule}
+        res = correlate_prepared(cfg, levels, guess, center_i, n_points0,
+                                 statics)
+        p_new, chi_new, it_new = res.params, res.chi, res.iterations
+        if stop_frame:
+            bad = res.error != int(ErrorCode.NONE)
+            fallback = torch.zeros_like(p) if first else p
+            p_new = torch.where(bad[:, None], fallback, p_new)
+            chi_new = torch.where(bad, chi_c, chi_new)
+            it_new = torch.where(bad, it_c, it_new)
+        prev, p, chi_c, it_c = p, p_new, chi_new, it_new
+        for key, val in (("params", p_new), ("guess", guess),
+                         ("chi", chi_new), ("iterations", it_new),
                          ("error", res.error)):
             ys[key].append(val)
     out = {key: torch.stack(val) for key, val in ys.items()}
@@ -485,7 +546,7 @@ def correlate_frames(
         ],
         dim=-1,
     )
-    out["carry"] = (p, prev, chi_c, it_c)
+    out["carry"] = (p, prev, chi_c, it_c) + ((off, ucen) if lagrangian else ())
     out["center0"] = batch.center0
     out["n_points0"] = n_points0.to(torch.int32)
     return out

@@ -1,8 +1,9 @@
 """Carrying problems and state over from the JAX package.
 
 The system has no weights.  What has to cross between correlation_tpu and
-this port is the subset geometry, the solver configuration and the chain
-state between chunks of a sequence.  These functions take the JAX
+this port is the subset geometry, the solver and sequence configurations
+and the chain state between chunks of a sequence (checkpoint files load in
+both packages as they are: utils/checkpoint.py).  These functions take the JAX
 package's values as numpy arrays or plain dicts; none of them imports
 correlation_tpu.
 """
@@ -13,9 +14,12 @@ import numpy as np
 import torch
 
 from correlation_tpu_torch.config import (
+    DeformationDescription,
+    ErrorMode,
     FittingModel,
     Interpolation,
     PyramidConfig,
+    ReferenceImage,
     SolverConfig,
 )
 from correlation_tpu_torch.domains import SubsetBatch, _level_extents
@@ -71,21 +75,44 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
     )
 
 
+def sequence_config_from_dict(d: dict):
+    """A sequence.SequenceConfig from dataclasses.asdict of the JAX
+    SequenceConfig (enums as ints, the solver as a dict)."""
+    from correlation_tpu_torch.sequence import SequenceConfig
+
+    d = dict(d)
+    solver = d.pop("solver", {})
+    if not isinstance(solver, SolverConfig):
+        solver = solver_config_from_dict(solver)
+    return SequenceConfig(
+        solver=solver,
+        deformation=DeformationDescription(
+            int(d.pop("deformation", DeformationDescription.EULERIAN))),
+        reference=ReferenceImage(int(d.pop("reference", ReferenceImage.FIRST))),
+        error_mode=ErrorMode(int(d.pop("error_mode", ErrorMode.CONTINUE))),
+        **d,
+    )
+
+
 def chain_seed_from_numpy(carry, device=None):
-    """The port's (p_seed, prev_seed, chi_seed, it_seed) from the JAX
-    correlate_frames carry (p, prev, chi, it) as numpy arrays."""
-    if len(carry) != 4:
+    """The port's seeds from the JAX correlate_frames carry as numpy
+    arrays: (p_seed, prev_seed, chi_seed, it_seed) from the Eulerian carry
+    (p, prev, chi, it), and off_seed, ucen_seed as well from the Lagrangian
+    carry (p, prev, chi, it, off, ucen)."""
+    if len(carry) not in (4, 6):
         raise ValueError(
-            f"expected the Eulerian carry (p, prev, chi, it), got "
-            f"{len(carry)} arrays"
+            f"expected the carry (p, prev, chi, it) or (p, prev, chi, it, "
+            f"off, ucen), got {len(carry)} arrays"
         )
-    p, prev, chi, it = (np.array(a) for a in carry)
+    p, prev, chi, it, *lagr = (np.array(a) for a in carry)
     if p.shape != prev.shape or p.ndim != 2 or chi.shape != (p.shape[0],):
         raise ValueError(f"carry shapes {p.shape}, {prev.shape}, {chi.shape}")
+    if any(a.shape != (p.shape[0], 2) for a in lagr):
+        raise ValueError(f"off / ucen shapes {[a.shape for a in lagr]}")
     f32 = torch.float32
     return (
         torch.as_tensor(p, dtype=f32, device=device),
         torch.as_tensor(prev, dtype=f32, device=device),
         torch.as_tensor(chi, dtype=f32, device=device),
         torch.as_tensor(it, dtype=torch.int32, device=device),
-    )
+    ) + tuple(torch.as_tensor(a, dtype=f32, device=device) for a in lagr)

@@ -1,9 +1,15 @@
 """Build and load the CUDA kernels of the port.
 
 The kernel sources under correlation_tpu_torch/csrc/ are compiled at first
-use with nvcc into a shared library with a plain C interface, loaded with
-ctypes.  The library lives in build/ at the repository root and is named
-by a hash of its sources and flags, so a changed source rebuilds it.
+use with nvcc into one shared library with a plain C interface, loaded with
+ctypes.  Each source compiles to an object file in its own nvcc process,
+all started together, and one more nvcc links them: on an H100 host with
+8 cores this took 9.4-11.0 s against 14.5-16.4 s for one nvcc of all
+three sources (three runs each, PERF.md section 6).  The library lives in
+build/ at the repository root and is named by a hash of its sources and
+flags, so a changed source rebuilds it.  Every source is built with
+-fmad=false, which the fused assembly needs to round as its plain version
+does; the experiment kernels are built under it too.
 """
 
 from __future__ import annotations
@@ -18,12 +24,14 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = [_PKG / "csrc" / "fused_assemble.cu"]
+_SOURCES = [
+    _PKG / "csrc" / name
+    for name in ("fused_assemble.cu", "exp_gather.cu", "exp_stages.cu")
+]
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -57,20 +65,44 @@ def build() -> Path:
         build_seconds = 0.0
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{path.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(_SOURCES, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [
+        f"{src.name} ({proc.returncode}):\n{log}"
+        for src, proc, log in zip(_SOURCES, procs, logs) if proc.returncode
+    ]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode:
+            failed.append(f"link ({link.returncode}):\n{link.stdout}"
+                          f"{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = load_library().fused_assemble_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
 def load_library():
@@ -92,5 +124,16 @@ def load_library():
             ]
             lib.fused_assemble_error_string.restype = ctypes.c_char_p
             lib.fused_assemble_error_string.argtypes = [i32]
+            # Each launcher ends with (out, stream) and returns cudaError_t.
+            launchers = {
+                "gather_rows_launch": [vp, vp, i32, i32, i32],  # src, idx, rows, cols, n
+                "stage_product_launch":  # batched, a, o, G, B, K, M, P
+                    [i32, vp, vp, i32, i32, i32, i32, i32],
+                "stage_gram_launch": [i32, vp, i32, i32, i32],  # big, g, G, B, P
+                "stage_vpu_launch": [vp, vp, i32, i32, i32],  # sel, rx, G, B, P
+            }
+            for name, args in launchers.items():
+                getattr(lib, name).restype = i32
+                getattr(lib, name).argtypes = args + [vp, vp]
             _lib = lib
         return _lib

@@ -371,7 +371,7 @@ def fused_assemble(
         )
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
-    from correlation_tpu_torch.ops._build import load_library
+    from correlation_tpu_torch.ops._build import check_launch, load_library
 
     lib = load_library()
     n = params.shape[0] if idx is None else idx.shape[0]
@@ -389,10 +389,6 @@ def fused_assemble(
         int(tile_h), int(tile_w), ptr(out.data_ptr()),
         ptr(torch.cuda.current_stream(img.device).cuda_stream),
     )
-    if rc != 0:
-        raise RuntimeError(
-            "fused_assemble kernel launch failed: "
-            + lib.fused_assemble_error_string(rc).decode()
-        )
+    check_launch(rc, "fused_assemble")
     LAUNCHES += 1
     return out

@@ -1,11 +1,13 @@
-"""The dense-grid problem that bench.py measures, rebuilt with NumPy.
+"""The dense-grid problem that bench.py measures, rebuilt with NumPy, and
+a drifting sequence of the same texture.
 
 A 1024x1024 uint8-valued speckle (blurred uniform noise from seed 0), the
 deformed frame the same texture shifted by one row (true warp u = 0,
 v = +1), and a dense grid of 21x21-pixel subsets, solved AFFINE/BICUBIC
 over pyramid levels 2-1-0 at the reference's stopping rule (max 50
 iterations, precision 1e-3).  Arrays equal bench.build_problem's
-(tests/test_torch_domains.py).
+(tests/test_torch_domains.py).  sequence_problem moves the texture down
+one row a frame over a sequence of frame pairs.
 """
 
 from __future__ import annotations
@@ -21,18 +23,83 @@ from correlation_tpu_torch.config import (
 from correlation_tpu_torch.domains import SubsetBatch, make_batch
 
 
-def speckle(h: int, w: int, seed: int, row_shift: int = 0) -> np.ndarray:
-    """[h, w] float32 uint8-valued speckle: uniform noise from `seed`,
-    box-blurred 5 wide along both axes, scaled by 2 modulo 255, floored.
-    row_shift = 1 gives the same texture moved down by one row."""
+def _noise_base(h: int, w: int, seed: int, extra_top: int) -> np.ndarray:
+    """Uniform noise from `seed`, box-blurred 5 wide along both axes: the
+    (h + 8) x (w + 8) block drawn first, then `extra_top` rows drawn after
+    it and stacked above it, nearest row first."""
     rng = np.random.default_rng(seed)
     base = rng.uniform(0, 255, (h + 8, w + 8))
+    if extra_top:
+        above = rng.uniform(0, 255, (extra_top, w + 8))
+        base = np.concatenate([above[::-1], base])
     k = np.ones(5) / 5.0
     base = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 0, base)
-    base = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, base)
-    y0 = 4 - row_shift
-    return np.floor(base[y0 : y0 + h, 4 : w + 4] * 2.0 % 255.0).astype(
-        np.float32
+    return np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, base)
+
+
+def speckle_frames(
+    h: int, w: int, seed: int, row_shifts, max_shift: int = 4
+) -> np.ndarray:
+    """[len(row_shifts), h, w] float32 uint8-valued speckle: uniform noise
+    from `seed`, box-blurred 5 wide along both axes, scaled by 2 modulo
+    255, floored.  Frame i is the texture moved down by row_shifts[i] rows
+    (0 <= shift <= max_shift).  Frames made with one max_shift share one
+    texture; up to max_shift = 4 it is bench.build_problem's."""
+    for t in row_shifts:
+        if not 0 <= t <= max_shift:
+            raise ValueError(f"row_shift {t} outside [0, {max_shift}]")
+    extra = max(max_shift - 4, 0)
+    base = _noise_base(h, w, seed, extra)
+    return np.stack([
+        np.floor(base[y0 : y0 + h, 4 : w + 4] * 2.0 % 255.0)
+        for y0 in (extra + 4 - t for t in row_shifts)
+    ]).astype(np.float32)
+
+
+def speckle(
+    h: int, w: int, seed: int, row_shift: int = 0, max_shift: int = 4
+) -> np.ndarray:
+    """[h, w] float32: the one frame of speckle_frames moved down by
+    row_shift rows."""
+    return speckle_frames(h, w, seed, [row_shift], max_shift)[0]
+
+
+def drifting_sequence(num_pairs: int, img_hw: int = 1024,
+                      seed: int = 0) -> np.ndarray:
+    """[num_pairs + 1, H, W, 1] uint8 frames: frame t is the speckle moved
+    down by t rows, so the true motion is (u, v) = (0, t) against frame 0
+    and (0, 1) between neighbouring frames."""
+    return speckle_frames(img_hw, img_hw, seed, range(num_pairs + 1),
+                          max_shift=num_pairs)[..., None].astype(np.uint8)
+
+
+def _grid(num_subsets: int, img_hw: int, half: int, room: int = 0):
+    """Square subsets of side 2 half + 1 on a dense grid, 4 half from the
+    image edges and `room` rows more from the bottom edge: (point lists,
+    centers [S, 2])."""
+    side = int(np.ceil(np.sqrt(num_subsets)))
+    margin = 4 * half
+    xs = np.linspace(margin, img_hw - margin, side)
+    ys = np.linspace(margin, img_hw - margin - room, side)
+    centers = [(int(cx), int(cy)) for cy in ys for cx in xs][:num_subsets]
+    pts = []
+    for cx, cy in centers:
+        gx, gy = np.meshgrid(
+            np.arange(cx - half, cx + half + 1),
+            np.arange(cy - half, cy + half + 1),
+            indexing="ij",
+        )
+        pts.append(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32))
+    return pts, np.array(centers, np.float32)
+
+
+def _solver(stop: int) -> SolverConfig:
+    return SolverConfig(
+        model=FittingModel.AFFINE,
+        interpolation=Interpolation.BICUBIC,
+        pyramid=PyramidConfig(0, 1, stop),
+        max_iterations=50,
+        precision=1e-3,
     )
 
 
@@ -44,27 +111,27 @@ def dense_grid_problem(
     params0 [S, 6] zeros)."""
     und = speckle(img_hw, img_hw, 0)
     dfm = speckle(img_hw, img_hw, 0, row_shift=1)
-
-    cfg = SolverConfig(
-        model=FittingModel.AFFINE,
-        interpolation=Interpolation.BICUBIC,
-        pyramid=PyramidConfig(0, 1, stop),
-        max_iterations=50,
-        precision=1e-3,
-    )
-    side = int(np.ceil(np.sqrt(num_subsets)))
-    margin = 4 * half
-    coords = np.linspace(margin, img_hw - margin, side)
-    centers = [(int(cx), int(cy)) for cy in coords for cx in coords]
-    centers = centers[:num_subsets]
-    pts = []
-    for cx, cy in centers:
-        gx, gy = np.meshgrid(
-            np.arange(cx - half, cx + half + 1),
-            np.arange(cy - half, cy + half + 1),
-            indexing="ij",
-        )
-        pts.append(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32))
-    batch = make_batch(pts, np.array(centers, np.float32), stop)
+    cfg = _solver(stop)
+    pts, centers = _grid(num_subsets, img_hw, half)
+    batch = make_batch(pts, centers, stop)
     params0 = np.zeros((num_subsets, cfg.num_params), np.float32)
     return cfg, und, dfm, batch, params0
+
+
+def sequence_problem(
+    num_subsets: int = 4096, num_pairs: int = 32, img_hw: int = 1024,
+    half: int = 10, stop: int = 2,
+) -> tuple[SolverConfig, np.ndarray, list[np.ndarray], np.ndarray]:
+    """The sequence shape of the JAX package's BENCH_SEQ_r05.json record
+    (4096 21x21 subsets, 32 pairs of 1024x1024 frames, AFFINE / BICUBIC,
+    levels 2-1-0) on drifting_sequence frames.  The grid leaves num_pairs
+    more rows at the bottom than dense_grid_problem, so that the subsets
+    stay clear of the bicubic border whether the domain stays (Eulerian:
+    it samples the deformed frame up to num_pairs rows lower) or follows
+    the material down (Lagrangian).
+
+    Returns (cfg, frames [num_pairs + 1, H, W, 1] uint8, point lists,
+    centers [S, 2])."""
+    pts, centers = _grid(num_subsets, img_hw, half, room=num_pairs)
+    return (_solver(stop), drifting_sequence(num_pairs, img_hw), pts,
+            centers)

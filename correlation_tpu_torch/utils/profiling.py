@@ -1,0 +1,99 @@
+"""Throughput metering and card timing.
+
+SolveMeter is the JAX package's always-on solves/s meter
+(correlation_tpu/utils/profiling.py).  PyTorch returns from a CUDA call
+before the card has finished, so the meter synchronises the device before
+it reads the clock, at both ends of a measured region.
+
+cuda_time_ms times eager calls, host issue included: for a kernel of tens
+of microseconds that is mostly the wrapper's host cost.  graph_ms replays
+the calls from a CUDA graph and so times the device alone.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import subprocess
+import time
+
+import torch
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class SolveMeter:
+    """Accumulates subsets solved and wall time; reports solves/s."""
+
+    def __init__(self):
+        self.subsets = 0
+        self.seconds = 0.0
+        self.frames = 0
+
+    @contextlib.contextmanager
+    def measure(self, num_subsets: int):
+        _sync()
+        t0 = time.perf_counter()
+        yield
+        _sync()
+        self.seconds += time.perf_counter() - t0
+        self.subsets += num_subsets
+        self.frames += 1
+
+    @property
+    def solves_per_s(self) -> float:
+        return self.subsets / self.seconds if self.seconds else 0.0
+
+    def summary(self) -> str:
+        return (
+            f"{self.subsets} subset solves over {self.frames} frames in "
+            f"{self.seconds:.3f}s = {self.solves_per_s:.1f} solves/s"
+        )
+
+
+def cuda_time_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of `fn` on the card: one warm-up call, then
+    `reps` calls between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of `fn`, without the host's cost of
+    issuing it: `reps` calls captured in one CUDA graph after a warm-up
+    call, the graph's second replay timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_name_and_power() -> str:
+    """The first card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

@@ -90,16 +90,54 @@ def test_chain_seed_from_numpy():
     assert [t.dtype for t in seed] == [torch.float32] * 3 + [torch.int32]
     np.testing.assert_array_equal(seed[1].numpy(), p - 1)
     assert seed[3].tolist() == [3, 4]
+    lagr = chain_seed_from_numpy((p, p, np.ones(2), np.ones(2),
+                                  np.ones((2, 2)), np.zeros((2, 2))))
+    assert len(lagr) == 6 and lagr[4].dtype == torch.float32
     with pytest.raises(ValueError):
         chain_seed_from_numpy((p, p, np.ones(2)))
     with pytest.raises(ValueError):
         chain_seed_from_numpy((p, p[:1], np.ones(2), np.ones(2)))
+    with pytest.raises(ValueError):
+        chain_seed_from_numpy((p, p, np.ones(2), np.ones(2), np.ones((2, 3)),
+                               np.ones((2, 2))))
+
+
+def test_sequence_config_from_jax_dict():
+    from correlation_tpu.sequence import SequenceConfig as JSequence
+    from correlation_tpu_torch.interop import sequence_config_from_dict
+    from correlation_tpu_torch.sequence import SequenceConfig
+
+    ref = JSequence(
+        solver=jcfg.SolverConfig(model=jcfg.FittingModel.UV,
+                                 pyramid=jcfg.PyramidConfig(0, 1, 1)),
+        deformation=jcfg.DeformationDescription.LAGRANGIAN,
+        reference=jcfg.ReferenceImage.PREVIOUS,
+        error_mode=jcfg.ErrorMode.STOP_FRAME, frame_chunk=7,
+        record_points=True,
+    )
+    d = dataclasses.asdict(ref)
+    got = sequence_config_from_dict(d)
+    assert isinstance(got, SequenceConfig)
+    assert got.deformation == tcfg.DeformationDescription.LAGRANGIAN
+    assert got.reference == tcfg.ReferenceImage.PREVIOUS
+    assert got.error_mode == tcfg.ErrorMode.STOP_FRAME
+    assert (got.frame_chunk, got.record_points) == (7, True)
+    assert got.solver.model == tcfg.FittingModel.UV
+    assert got.solver.pyramid == tcfg.PyramidConfig(0, 1, 1)
+    assert {f.name for f in dataclasses.fields(got)} == set(d)
 
 
 def test_import_leaves_jax_out():
     code = (
         "import sys, correlation_tpu_torch, correlation_tpu_torch.interop, "
-        "correlation_tpu_torch.problems, correlation_tpu_torch.ops._build; "
+        "correlation_tpu_torch.problems, correlation_tpu_torch.ops._build, "
+        "correlation_tpu_torch.sequence, correlation_tpu_torch.io, "
+        "correlation_tpu_torch.report, correlation_tpu_torch.utils.checkpoint, "
+        "correlation_tpu_torch.utils.profiling, "
+        "correlation_tpu_torch.experiments.exp_gather, "
+        "correlation_tpu_torch.experiments.exp_matmul_overhead; "
+        "bad = [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]; "
+        "print(bad); assert not bad; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('correlation_tpu.') or m == 'correlation_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"

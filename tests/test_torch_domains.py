@@ -97,3 +97,27 @@ def test_dense_grid_problem_matches_bench():
         jcfg.pyramid.levels_coarse_to_fine()
     # bench.main runs at the reference's stopping rule
     assert (cfg.max_iterations, cfg.precision) == (50, 1e-3)
+
+
+def test_drifting_sequence_moves_one_row_a_frame():
+    """Frame t of the drifting sequence is frame 0 moved down by t rows;
+    speckle keeps bench's texture up to max_shift 4."""
+    from correlation_tpu_torch.problems import (
+        drifting_sequence,
+        sequence_problem,
+        speckle,
+    )
+
+    frames = drifting_sequence(9, img_hw=64, seed=3)
+    assert frames.shape == (10, 64, 64, 1) and frames.dtype == np.uint8
+    for t in range(10):
+        np.testing.assert_array_equal(frames[t, t:, :, 0],
+                                      frames[0, : 64 - t, :, 0])
+    np.testing.assert_array_equal(speckle(64, 64, 3, 2),
+                                  speckle(64, 64, 3, 2, max_shift=2))
+    with pytest.raises(ValueError):
+        speckle(64, 64, 3, 5)
+    _, frames, pts, centers = sequence_problem(64, 8, img_hw=128)
+    # Every subset keeps clear of the bicubic border after 8 rows of drift.
+    assert max(p[:, 1].max() for p in pts) + 8 < 128 - 2
+    np.testing.assert_array_equal(centers, [p.mean(axis=0) for p in pts])

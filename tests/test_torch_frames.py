@@ -151,7 +151,33 @@ def test_chunks_chain_exactly():
     assert torch.equal(joined, whole["packed"])
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        _port(np.zeros((2, 32, 32, 1), np.uint8), [np.zeros((1, 2))],
-              lagrangian=True)
+def test_lagrangian_previous_stop_frame_matches_jax(problem):
+    """The modes that raised in the first slice: Lagrangian, reference-
+    Previous, STOP_FRAME.  Two pairs against JAX, then the third solved
+    from JAX's Lagrangian carry (p, prev, chi, it, off, ucen) equals the
+    port's own three-pair chain."""
+    frames, pts = problem
+    kw = dict(reference_first=False, stop_frame=True, lagrangian=True,
+              float_centers=False)
+    with _pallas_interpret():
+        out = jax_frames(JSolver(pyramid=JPyramid(0, 1, 2), backend="pallas"),
+                         jnp.asarray(frames[:3]), jax_make_batch(pts, None, 2),
+                         np.zeros((len(pts), 6), np.float32), **kw)
+    got = _port(frames[:3], pts, **kw)
+    np.testing.assert_allclose(got["packed"].numpy()[..., :6],
+                               np.asarray(out["packed"])[..., :6], atol=5e-5)
+    np.testing.assert_array_equal(got["packed"].numpy()[..., 7:],
+                                  np.asarray(out["packed"])[..., 7:])
+    seed = chain_seed_from_numpy([np.asarray(a) for a in out["carry"]])
+    for a, b in zip(got["carry"], seed):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5)
+    whole = _port(frames, pts, **kw)
+    rest = _port(frames[2:], pts, first_chunk=False,
+                 **dict(zip(("p_seed", "prev_seed", "chi_seed", "it_seed",
+                             "off_seed", "ucen_seed"), seed)), **kw)
+    np.testing.assert_allclose(rest["params"].numpy(),
+                               whole["params"].numpy()[2:], atol=5e-5)
+    np.testing.assert_array_equal(rest["iterations"].numpy(),
+                                  whole["iterations"].numpy()[2:])
+    np.testing.assert_allclose(whole["params"].numpy()[..., :2],
+                               np.tile([0.6, -0.35], (3, 4, 1)), atol=0.05)
