@@ -24,8 +24,12 @@ Phases, one informational line each:
      experiments.exp_matmul_overhead at the JAX scripts' sizes, then each
      kernel against its plain version (the gather bit for bit, the stages
      within 1e-5 of the sum of |terms| of each output, gram_loop against
-     gram_big), with both times: device time replayed from a CUDA graph,
-     as K1's, and eager time through the wrapper;
+     gram_big, loop against batched bit for bit), with device times
+     replayed from a CUDA graph, as K1's, and eager times through the
+     wrapper; inputs that fit in the 50 MB L2 (the Grams', the gather's)
+     are timed from HBM by rotating copies, beside their L2-resident time;
+     beside each kernel, the one PyTorch call that computes its function,
+     where there is one (torch.bmm with out_dtype, einsum, take_along_dim);
   8. sequence: run_sequence on 32 pairs of drifting 1024x1024 uint8 frames
      (4096 21x21 subsets, AFFINE/BICUBIC, levels 2-1-0) from an in-memory
      uint8 source, Eulerian-First and Lagrangian-Previous chunked 32 pairs
@@ -33,8 +37,11 @@ Phases, one informational line each:
      for finite parameters, the hard-error fraction, the known motion and
      kernel launches, and its first 256 subsets x 2 pairs against the
      plain version on the CPU.
-Then a JSON line with the kernel records and, last, the JSON line
-{"ok": true, "device": {...}}.  Any failed phase raises and the script
+Then a JSON line with the kernel records (K1 at each level, K2, the five
+stages): launches on the main path, agreement with the plain version, the
+kernel's, the plain version's and the library call's times, and the
+kernel's bound, the least time the card could take for the same work
+(bound()); and, last, the JSON line {"ok": true, "device": {...}}.  Any failed phase raises and the script
 exits non-zero without those lines; so does a machine without a CUDA
 device, or a directory without the package.
 """
@@ -52,9 +59,35 @@ SEQ_PAIRS = 32
 STRICT_PAIRS = 4
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
+# HBM bytes a second, dense operations a second by type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+# K1's operations per pixel for AFFINE / BICUBIC / one channel, each add
+# and multiply of csrc/fused_assemble.cu's body one (it builds with
+# -fmad=false): warp 10, tap fractions 2, two sets of Catmull-Rom taps 66,
+# tile offsets 4, live / bad 3, the 4 x 4 tap sums 56 + 21, gradients and
+# residual 4, the Jacobian's products 4, the 36 Gram products 72.
+K1_OPS_PER_PIXEL = 242
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, ops=0.0, kind="fp32"):
+    """The least time (ms) one H100 could take for a function that moves
+    `moved` bytes (each input read once, each output written once) and does
+    `ops` operations of type `kind`: the larger of the two times at the
+    published peaks, and which one it is ("bytes" or "operations")."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gram_check(got, ref, num_p, what):
@@ -129,7 +162,12 @@ def experiments_phase(torch, dev, smi):
     times from CUDA graphs as K1's."""
     from correlation_tpu_torch.experiments import exp_gather as eg
     from correlation_tpu_torch.experiments import exp_matmul_overhead as em
-    from correlation_tpu_torch.utils.profiling import cuda_time_ms, graph_ms
+    from correlation_tpu_torch.utils.profiling import (
+        L2_BYTES,
+        cuda_time_ms,
+        graph_ms,
+        graph_ms_cold,
+    )
 
     eg.LAUNCHES = 0
     em.LAUNCHES.update(dict.fromkeys(em.NAMES, 0))
@@ -141,28 +179,52 @@ def experiments_phase(torch, dev, smi):
     check(all(v > 0 for v in launches.values()),
           f"an experiment kernel was never launched: {launches}")
 
-    def record(name, src, line, err, fn, plain):
+    def record(name, src, line, err, inputs, out, fn, plain, library,
+               ops=0.0, kind="fp32"):
+        """The kernel's record: fn, plain and library (None, or (call,
+        function)) take `inputs`.  Inputs that fit in the L2 are timed from
+        HBM (graph_ms_cold), with the L2-resident time beside."""
+        cold = nbytes(*inputs) < L2_BYTES
+
+        def dev_ms(f):
+            return graph_ms_cold(f, inputs) if cold else graph_ms(
+                lambda: f(*inputs))
+
+        bound_ms, bound_by = bound(nbytes(*inputs, out), ops, kind)
         rec = {
             "name": name, "route": "cuda",
             "source": f"correlation_tpu_torch/csrc/{src}",
             "replaces": f"experiments/{line}", "launches": launches[name],
-            "max_abs_err": err, "ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+            "max_abs_err": err, "ms": dev_ms(fn), "plain_ms": dev_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": library and library[0],
+            "library_ms": library and dev_ms(library[1]),
         }
+        warm = ""
+        if cold:
+            rec["ms_l2_resident"] = graph_ms(lambda: fn(*inputs))
+            warm = f", {rec['ms_l2_resident']:.4f} ms L2-resident"
+        lib = (f"; {library[0]} {rec['library_ms']:.4f} ms" if library
+               else "")
         print(f"experiments: {name} max |kernel - plain| {err:.3e}; kernel "
-              f"{rec['ms']:.4f} ms (graph), {cuda_time_ms(fn):.4f} ms (eager "
-              f"wrapper); plain {rec['plain_ms']:.4f} ms (graph), "
-              f"{cuda_time_ms(plain):.4f} ms (eager) ({smi})")
+              f"{rec['ms']:.4f} ms (graph{', from HBM' if cold else ''}"
+              f"{warm}), {cuda_time_ms(lambda: fn(*inputs)):.4f} ms (eager "
+              f"wrapper); plain {rec['plain_ms']:.4f} ms (graph){lib}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / rec['ms']:.1%} "
+              f"of it ({smi})")
         return rec
 
     src, idx = eg.make_inputs(dev)
     got, ref = eg.gather_rows(src, idx), eg.gather_rows_reference(src, idx)
     check(torch.equal(got, ref), "gather_rows differs from its plain version")
     out = [record("gather_rows", "exp_gather.cu", "exp_gather.py:14", 0.0,
-                  lambda: eg.gather_rows(src, idx),
-                  lambda: eg.gather_rows_reference(src, idx))]
+                  [src, idx], got, eg.gather_rows, eg.gather_rows_reference,
+                  ("torch.take_along_dim",
+                   lambda s, i, il=idx.long(): torch.take_along_dim(
+                       s, il, dim=0)))]
     lines = {"loop": 71, "batched": 83, "gram_loop": 94, "gram_big": 104,
              "vpu": 120}
-    grams = {}
+    kept = {}
     for name in em.NAMES:
         inputs = em.make_inputs(name, dev)
         kernel, plain = em.KERNELS[name], em.REFERENCES[name]
@@ -170,15 +232,29 @@ def experiments_phase(torch, dev, smi):
         scale = em.terms_scale(name, inputs)
         ok, err = em.agreement(got, plain(*inputs), scale)
         check(ok, f"stage_{name} differs from its plain version by {err}")
-        if name.startswith("gram"):
-            grams[name] = got
-            if len(grams) == 2:
-                ok, _ = em.agreement(grams["gram_loop"], grams["gram_big"],
-                                     scale)
-                check(ok, "gram_loop and gram_big differ")
+        # The two products share one routine and agree bit for bit; the
+        # two Grams sum in different orders.
+        if name in ("loop", "gram_loop"):
+            kept[name] = got
+        elif name == "batched":
+            check(torch.equal(kept.pop("loop"), got), "loop and batched differ")
+        elif name == "gram_big":
+            check(em.agreement(kept.pop("gram_loop"), got, scale)[0],
+                  "gram_loop and gram_big differ")
+        g, b, k, m = inputs[0].shape
+        p = inputs[-1].shape[-1]
+        ops, kind = {
+            "loop": (2 * g * b * m * p * k, "bf16"),
+            "batched": (2 * g * b * m * p * k, "bf16"),
+            "gram_loop": (2 * g * b * 36 * p, "fp32"),
+            "gram_big": (2 * g * b * 36 * p, "fp32"),
+            # Per output column: 32 columns of 16 mask, 12 tap and 6 sum ops.
+            "vpu": (g * b * p * em.TW * 34, "fp32"),
+        }[name]
         out.append(record(f"stage_{name}", "exp_stages.cu",
                           f"exp_matmul_overhead.py:{lines[name]}", err,
-                          lambda: kernel(*inputs), lambda: plain(*inputs)))
+                          inputs, got, kernel, plain, em.LIBRARY[name],
+                          ops, kind))
         del inputs, got, scale
         torch.cuda.empty_cache()
     return out
@@ -428,7 +504,6 @@ def main() -> int:
             cuda_time_ms(lambda: v2.fused_assemble(*args), 20),
             cuda_time_ms(lambda: v2.fused_assemble_reference(*args), 5),
         )
-    kernel_ms, _, plain_ms = per_level[0]
     asm = "; ".join(f"L{lvl} kernel {k:.4f} ms (graph), {e:.4f} ms (eager "
                     f"wrapper), plain {p:.4f} ms"
                     for lvl, (k, e, p) in per_level.items())
@@ -436,16 +511,32 @@ def main() -> int:
           f"{NUM_SUBSETS * FRAMES / chunk_s:.1f} solves/s, mean iterations "
           f"{mean_it:.3f}; one assembly of {NUM_SUBSETS} subsets: {asm}")
 
-    kernels = [{
-        "name": "fused_assemble",
-        "route": "cuda",
-        "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
-        "replaces": "correlation_tpu/ops/assemble_v2.py:964",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]
+    kernels = []
+    for lvl, (kernel_ms, _, plain_ms) in sorted(per_level.items()):
+        img, pix, center, params, bbox = level_args[lvl][6:]
+        rows = 5 + img.shape[2]  # pix rows the kernel reads: x, y, m, dx, dy, und
+        n, p_len = pix.shape[0], pix.shape[2]
+        moved = (nbytes(img, center, params, bbox) + n * rows * p_len * 4
+                 + n * 64 * 4)
+        ops = n * (p_len * K1_OPS_PER_PIXEL + 36 * (v2.KERNEL_THREADS - 1))
+        bound_ms, bound_by = bound(moved, ops, "fp32")
+        kernels.append({
+            "name": f"fused_assemble_L{lvl}",
+            "route": "cuda",
+            "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
+            "replaces": "correlation_tpu/ops/assemble_v2.py:964",
+            "launches": launches,  # all levels' launches of the one kernel
+            "max_abs_err": max_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_call": None,
+            "library_ms": None,
+        })
+        print(f"bound L{lvl}: {moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP "
+              f"-> {bound_ms:.4f} ms ({bound_by}), kernel at "
+              f"{bound_ms / kernel_ms:.1%} of it")
 
     # ---- 7. experiment kernels ----------------------------------------------
     kernels += experiments_phase(torch, dev, smi)

@@ -13,12 +13,37 @@
 // steps of B = 8 subsets, K = 120, M = 128, P = 512, TW = 32.
 //
 //   loop, batched  out[g,b] = a[g,b]^T o[g,b]: a [G,B,K,M], o [G,B,K,P] bf16,
-//                  out [G,B,M,P] f32.  A shared-memory tiled FMA product:
-//                  256 threads, 128 x 128 output tiles, 8 x 8 outputs a
-//                  thread, K in steps of 8.  loop: a grid of G blocks, each
-//                  block walks its B subsets; batched: G x B blocks.  32
-//                  GFLOP and 850 MB of traffic: bound by the FMA rate of the
-//                  CUDA cores (no tensor cores, no wgmma/TMA: later work).
+//                  out [G,B,M,P] f32 (k_loop / k_batch).  Bound: 851 MB of
+//                  traffic, 537 MB of it the f32 output, 0.254 ms at 3.35
+//                  TB/s, against 32 GFLOP, 0.033 ms on the tensor cores: a
+//                  streaming store with a small product in front of it.
+//                  One product routine (product_walk) serves both grids:
+//                  loop, G blocks each walking its B subsets; batched, G x B
+//                  blocks of one subset.  A block of 16 warps computes 128 x
+//                  128 output tiles with mma.sync m16n8k16 bf16 -> f32, both
+//                  operands read by ldmatrix.trans (a and o are K-outer);
+//                  no product runs on the CUDA cores.  Each warp keeps its
+//                  16 rows of a^T for every k-step in registers, so a
+//                  subset's a is staged once and its buffer refills with
+//                  the next subset's a (cp.async) while this subset's tiles
+//                  run; o streams in 128-column tiles through three stages,
+//                  two tiles' cp.async in flight during a tile's mma and
+//                  stores.  K is zero-padded in shared memory to a multiple
+//                  of 16 (zeros add nothing, exactly).  Each warp stages its
+//                  16 x 64 f32 fragment tile in its own shared memory and
+//                  writes it back as 16-byte stores, two whole 256-byte row
+//                  pieces an instruction.  213 KB of shared memory, one
+//                  block an SM.  On the card, 128-column tiles beat 64-column
+//                  ones at two blocks an SM (longer row pieces reach memory
+//                  together); more blocks an SM with narrower tiles, a
+//                  block-wide output stage and streaming or evict-first
+//                  cache hints did not.  loop starts block g at subset g mod
+//                  B: blocks in step otherwise write regions 2 MB apart,
+//                  which was slower.  Rows of 16 B
+//                  alignment (M and P multiples of 8) take cp.async and
+//                  16-byte stores; other shapes stage and store element by
+//                  element with the same products.  K, M <= 128 (the
+//                  wrapper checks).
 //   gram_loop      out[g,b] = x x^T, x = g[g,b] [8, P] f32: one warp per
 //                  subset, each lane sums its pixels p = lane, lane + 32, ...
 //                  for the 36 products of the upper triangle, then a
@@ -39,88 +64,247 @@
 //                  one thread per (g, b, p).  Reads 512 MB once: bound by
 //                  HBM bandwidth.
 //
-// Sums run in a fixed order and every element-wise step rounds as the
-// plain PyTorch versions' do (-fmad=false, with explicit fmaf in the
-// products' accumulations); only the order of the sums differs from those
-// versions, so results agree to float32 summation error.
+// The products' bf16 x bf16 terms are exact in f32 and the tensor cores
+// add them in their own order; the other kernels' sums run in a fixed
+// order and every element-wise step rounds as the plain PyTorch versions'
+// do (-fmad=false, with explicit fmaf in the Gram accumulations).  Only
+// the order of the sums differs from those versions, so results agree to
+// f32 summation error.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 // ---- loop / batched ----------------------------------------------------
 
-constexpr int kProdThreads = 256;
-constexpr int kTM = 128, kTP = 128, kTK = 8;
+constexpr int kProdThreads = 512;  // 16 warps: 8 down M x 2 across a tile
+constexpr int kMaxK = 128, kMaxM = 128;
+constexpr int kWarpCols = 64;            // output columns of a warp
+constexpr int kTileP = 2 * kWarpCols;    // output columns a step
+constexpr int kStages = 3;               // o tiles in flight: this, 2 ahead
+// Shared-memory row strides: 16 bytes past a multiple of 128 keep the eight
+// rows of every ldmatrix and every fragment store in distinct banks.
+constexpr int kLdA = kMaxM + 8;          // bf16
+constexpr int kLdO = kTileP + 8;         // bf16
+constexpr int kLdOut = kWarpCols + 8;    // f32
+constexpr int kTileO = kMaxK * kLdO;     // one stage of o
+constexpr int kProdSmem = (kMaxK * kLdA + kStages * kTileO) * 2 +
+                          (kProdThreads / 32) * 16 * kLdOut * 4;
 
-// out [M, P] = a[K, M]^T o[K, P] for one subset, by the whole block.
-__device__ void subset_product(const __nv_bfloat16* __restrict__ a,
-                               const __nv_bfloat16* __restrict__ o,
-                               float* __restrict__ out, int K, int M, int P) {
-  __shared__ float sa[kTK][kTM];
-  __shared__ float so[kTK][kTP];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int m0 = 0; m0 < M; m0 += kTM) {
-    for (int p0 = 0; p0 < P; p0 += kTP) {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += kTK) {
-        for (int e = tid; e < kTK * kTM; e += kProdThreads) {
-          const int kk = e / kTM, k = k0 + kk, m = m0 + e % kTM;
-          sa[kk][e % kTM] =
-              (k < K && m < M) ? __bfloat162float(a[(size_t)k * M + m]) : 0.f;
-        }
-        for (int e = tid; e < kTK * kTP; e += kProdThreads) {
-          const int kk = e / kTP, k = k0 + kk, p = p0 + e % kTP;
-          so[kk][e % kTP] =
-              (k < K && p < P) ? __bfloat162float(o[(size_t)k * P + p]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kTK; ++kk) {
-          float ra[8], rb[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) ra[i] = sa[kk][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) rb[j] = so[kk][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int p = p0 + tx + 16 * j;
-          if (m < M && p < P) out[(size_t)m * P + p] = acc[i][j];
-        }
-      }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most n of this thread's newest copy groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += A B for one 16 x 8 x 16 step: A in a[4], B in b0, b1 (bf16 pairs).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage rows [0, K) x columns [c0, c0 + width) of a row-major bf16 matrix
+// with row length `ld` into shared memory with row stride `lds`.
+template <bool kVec>
+__device__ void stage_rows(uint16_t* __restrict__ dst, int lds,
+                           const uint16_t* __restrict__ src, int ld, int c0,
+                           int K, int width) {
+  if (kVec) {  // width, ld, c0 multiples of 8; 16-byte aligned rows
+    const int chunks = width / 8;
+    for (int e = threadIdx.x; e < K * chunks; e += kProdThreads) {
+      const int k = e / chunks, c = (e - k * chunks) * 8;
+      cp_async16(dst + k * lds + c, src + (size_t)k * ld + c0 + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < K * width; e += kProdThreads) {
+      const int k = e / width, c = e - k * width;
+      dst[k * lds + c] = src[(size_t)k * ld + c0 + c];
     }
   }
 }
 
-__global__ void __launch_bounds__(kProdThreads) stage_loop_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ o,
-    int B, int K, int M, int P, float* __restrict__ out) {
-  for (int b = 0; b < B; ++b) {
-    const size_t s = (size_t)blockIdx.x * B + b;
-    subset_product(a + s * K * M, o + s * K * P, out + s * M * P, K, M, P);
+// out[s] = a[s]^T o[s] for the n subsets s = s0 + (j + rot) % n, j = 0 ..
+// n - 1, by the block.  The tiles (j, p-tile) run in one sequence; o's
+// loads run kStages - 1 tiles ahead, each tile's copies one commit group.
+template <bool kVec>
+__device__ void product_walk(const uint16_t* __restrict__ a,
+                             const uint16_t* __restrict__ o,
+                             float* __restrict__ out, size_t s0, int n,
+                             int rot, int K, int M, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* sa = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* so = sa + kMaxK * kLdA;  // kStages tiles of o
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sw = reinterpret_cast<float*>(so + kStages * kTileO) +
+              warp * 16 * kLdOut;
+  auto subset = [&](int j) { return s0 + (j + rot) % n; };
+  const int nks = (K + 15) / 16;
+  const int pad = nks * 16 - K;
+  // Zero rows K .. 16 nks - 1 once: no load writes them.
+  for (int e = threadIdx.x; e < pad * kLdA; e += kProdThreads)
+    sa[K * kLdA + e] = 0;
+  for (int e = threadIdx.x; e < pad * kLdO; e += kProdThreads) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) so[st * kTileO + K * kLdO + e] = 0;
+  }
+  const int tiles = (P + kTileP - 1) / kTileP;
+  const int total = n * tiles;
+  const size_t a_size = (size_t)K * M, o_size = (size_t)K * P;
+  auto load_tile = [&](int u) {  // tile u's o into its stage
+    if (u < total) {
+      const int pu = u % tiles * kTileP;
+      stage_rows<kVec>(so + u % kStages * kTileO, kLdO,
+                       o + subset(u / tiles) * o_size, P, pu, K,
+                       min(kTileP, P - pu));
+    }
+    cp_async_commit();
+  };
+  stage_rows<kVec>(sa, kLdA, a + subset(0) * a_size, M, 0, K, M);
+#pragma unroll
+  for (int u = 0; u < kStages - 1; ++u) load_tile(u);
+
+  const int m0 = warp % 8 * 16, n0 = warp / 8 * kWarpCols;
+  const int i8 = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix, row
+  const int g = lane >> 2, c = lane & 3;    // mma fragment: row, column pair
+  uint32_t af[kMaxK / 16][4];               // a^T, this warp's rows
+  for (int t = 0; t < total; ++t) {
+    const int j = t / tiles, p0 = t % tiles * kTileP;
+    // Subset j's a was copied with tile t - tiles + kStages - 1; with
+    // fewer tiles a subset than kStages - 1, wait for every copy.
+    if (p0 == 0 && tiles < kStages - 1)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t staged; every warp is done with tile t - 1
+    if (p0 == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kMaxK / 16; ++ks)
+        if (ks < nks)
+          ldmatrix_x4_trans(
+              af[ks], sa + (ks * 16 + r8 + 8 * (i8 >> 1)) * kLdA + m0 +
+                          8 * (i8 & 1));
+      __syncthreads();  // sa is free: the next subset's a streams in
+      if (j + 1 < n)
+        stage_rows<kVec>(sa, kLdA, a + subset(j + 1) * a_size, M, 0, K, M);
+    }
+    load_tile(t + kStages - 1);  // into the stage tile t - 1 left
+
+    float acc[kWarpCols / 8][4] = {};
+    const uint16_t* sb = so + t % kStages * kTileO + n0;
+#pragma unroll
+    for (int ks = 0; ks < kMaxK / 16; ++ks) {
+      if (ks < nks) {
+#pragma unroll
+        for (int np = 0; np < kWarpCols / 16; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, sb + (ks * 16 + r8 + 8 * (i8 & 1)) * kLdO +
+                                   np * 16 + 8 * (i8 >> 1));
+          mma_bf16(acc[2 * np], af[ks], b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], af[ks], b[2], b[3]);
+        }
+      }
+    }
+
+    // The warp's 16 x 64 tile through its own shared memory, then out as
+    // 16-byte stores, two whole 256-byte row pieces an instruction.
+#pragma unroll
+    for (int nt = 0; nt < kWarpCols / 8; ++nt) {
+      *reinterpret_cast<float2*>(sw + g * kLdOut + nt * 8 + 2 * c) =
+          make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(sw + (g + 8) * kLdOut + nt * 8 + 2 * c) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+    __syncwarp();
+    float* dst = out + subset(j) * (size_t)M * P;
+    const int pc = p0 + n0;
+    if (kVec) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 2 * i + (lane >> 4), col = (lane & 15) * 4;
+        const int m = m0 + r, p = pc + col;
+        if (m < M && p < P)
+          *reinterpret_cast<float4*>(dst + (size_t)m * P + p) =
+              *reinterpret_cast<const float4*>(sw + r * kLdOut + col);
+      }
+    } else {
+      for (int e = lane; e < 16 * kWarpCols; e += 32) {
+        const int r = e / kWarpCols, col = e % kWarpCols;
+        const int m = m0 + r, p = pc + col;
+        if (m < M && p < P) dst[(size_t)m * P + p] = sw[r * kLdOut + col];
+      }
+    }
+    __syncwarp();
   }
 }
 
-__global__ void __launch_bounds__(kProdThreads) stage_batched_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ o,
+// loop: block g walks its B subsets, starting at subset g mod B, so that
+// the blocks running together write 256 KB regions spread over the output
+// rather than regions 2 MB apart.
+template <bool kVec>
+__global__ void __launch_bounds__(kProdThreads, 1) stage_loop_kernel(
+    const uint16_t* __restrict__ a, const uint16_t* __restrict__ o, int B,
     int K, int M, int P, float* __restrict__ out) {
-  const size_t s = blockIdx.x;
-  subset_product(a + s * K * M, o + s * K * P, out + s * M * P, K, M, P);
+  product_walk<kVec>(a, o, out, (size_t)blockIdx.x * B, B, blockIdx.x % B, K,
+                     M, P);
+}
+
+// batched: one block per subset.
+template <bool kVec>
+__global__ void __launch_bounds__(kProdThreads, 1) stage_batched_kernel(
+    const uint16_t* __restrict__ a, const uint16_t* __restrict__ o, int K,
+    int M, int P, float* __restrict__ out) {
+  product_walk<kVec>(a, o, out, blockIdx.x, 1, 0, K, M, P);
+}
+
+template <typename Kernel>
+cudaError_t prepare_product(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kProdSmem);
+}
+
+template <bool kVec>
+cudaError_t launch_product(int batched, const uint16_t* a, const uint16_t* o,
+                           int G, int B, int K, int M, int P, float* out,
+                           cudaStream_t stream) {
+  if (batched) {
+    cudaError_t e = prepare_product(stage_batched_kernel<kVec>);
+    if (e != cudaSuccess) return e;
+    stage_batched_kernel<kVec><<<G * B, kProdThreads, kProdSmem, stream>>>(
+        a, o, K, M, P, out);
+  } else {
+    cudaError_t e = prepare_product(stage_loop_kernel<kVec>);
+    if (e != cudaSuccess) return e;
+    stage_loop_kernel<kVec><<<G, kProdThreads, kProdSmem, stream>>>(
+        a, o, B, K, M, P, out);
+  }
+  return cudaGetLastError();
 }
 
 // ---- gram_loop / gram_big ----------------------------------------------
@@ -272,17 +456,17 @@ extern "C" {
 int stage_product_launch(int batched, const void* a, const void* o, int G,
                          int B, int K, int M, int P, float* out,
                          void* stream_ptr) {
-  if (G <= 0 || B <= 0) return 0;
-  auto a16 = (const __nv_bfloat16*)a;
-  auto o16 = (const __nv_bfloat16*)o;
+  if (G <= 0 || B <= 0 || M <= 0 || P <= 0) return 0;
+  if (K < 0 || K > kMaxK || M > kMaxM) return (int)cudaErrorInvalidValue;
+  auto a16 = (const uint16_t*)a;
+  auto o16 = (const uint16_t*)o;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (batched)
-    stage_batched_kernel<<<G * B, kProdThreads, 0, stream>>>(a16, o16, K, M, P,
-                                                             out);
-  else
-    stage_loop_kernel<<<G, kProdThreads, 0, stream>>>(a16, o16, B, K, M, P,
-                                                      out);
-  return (int)cudaGetLastError();
+  const bool vec = M % 8 == 0 && P % 8 == 0 &&
+                   ((uintptr_t)a | (uintptr_t)o | (uintptr_t)out) % 16 == 0;
+  return (int)(vec ? launch_product<true>(batched, a16, o16, G, B, K, M, P,
+                                          out, stream)
+                   : launch_product<false>(batched, a16, o16, G, B, K, M, P,
+                                           out, stream));
 }
 
 int stage_gram_launch(int big, const float* g, int G, int B, int P,

@@ -5,8 +5,9 @@ the assembly kernel's stages one by one.  Each variant is a hand-written
 CUDA kernel (csrc/exp_stages.cu) with a wrapper and a plain PyTorch
 version here:
 
-  loop       a[g, b]^T o[g, b] per subset, a block walking its B subsets
-  batched    the same product, one block per subset
+  loop       a[g, b]^T o[g, b] per subset on the tensor cores, a block
+             walking its B subsets
+  batched    the same product by the same routine, one block per subset
   gram_loop  the 8 x 8 Gram of each subset's [8, P] rows, a warp a subset
   gram_big   the same Gram from one [8B, 8B] product per block, keeping
              its B diagonal blocks
@@ -22,9 +23,11 @@ Run on a machine with an NVIDIA GPU:
   python -m correlation_tpu_torch.experiments.exp_matmul_overhead [loop batched gram vpu]
 
 For each variant it prints the JAX script's `name: ms total, us/step`
-line for the kernel and the same for the plain version, device time from
-a CUDA graph followed by the eager time with the host's issue cost, with
-the card's name and power limit; without a CUDA device it exits with 1.
+line for the kernel, the plain version and, for loop and batched, the one
+PyTorch call that computes the product (product_library: torch.bmm with
+out_dtype=float32, the yardstick), device time from a CUDA graph followed
+by the eager time with the host's issue cost, with the card's name and
+power limit; without a CUDA device it exits with 1.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ B, K, M, P = 8, 120, 128, 512
 G = 256
 TW = 32
 NAMES = ("loop", "batched", "gram_loop", "gram_big", "vpu")
+# The product kernel stages a subset's a [K, M] whole in shared memory.
+MAX_K = MAX_M = 128
 
 # Kernel launches by each wrapper (CUDA tensors only); callers reset them.
 LAUNCHES = dict.fromkeys(NAMES, 0)
@@ -101,6 +106,17 @@ def vpu_reference(sel: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
     return torch.stack([w_v, dwdx, dwdy], dim=2)
 
 
+def product_library(a: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes the product: torch.bmm with
+    out_dtype=float32, bf16 x bf16 -> float32 on the tensor cores (CUDA
+    only).  A yardstick for the kernels' time; the port never calls it."""
+    g, b, k, m = a.shape
+    p = o.shape[3]
+    return torch.bmm(a.view(g * b, k, m).transpose(1, 2),
+                     o.view(g * b, k, p),
+                     out_dtype=torch.float32).view(g, b, m, p)
+
+
 def terms_scale(name: str, inputs: list[torch.Tensor]) -> torch.Tensor:
     """Per output, the sum of the absolute values of the terms it adds up:
     the plain version on |inputs| (every weight is non-negative)."""
@@ -151,7 +167,11 @@ def _launch(name: str, fn, out: torch.Tensor, *args):
 
 def _product(name: str, a: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     ok = a.dim() == o.dim() == 4 and a.shape[:3] == o.shape[:3]
-    if _check([a, o], torch.bfloat16, ok, name).type == "cpu":
+    dev = _check([a, o], torch.bfloat16, ok, name)
+    if a.shape[2] > MAX_K or a.shape[3] > MAX_M:
+        raise ValueError(f"{name}: K = {a.shape[2]}, M = {a.shape[3]}; the "
+                         f"kernel takes K <= {MAX_K} and M <= {MAX_M}")
+    if dev.type == "cpu":
         return product_reference(a, o)
     g, b, k, m = a.shape
     p = o.shape[3]
@@ -216,6 +236,15 @@ REFERENCES = {
     "gram_big": gram_reference,
     "vpu": vpu_reference,
 }
+# One PyTorch call computing each variant's function, as (name, fn), or
+# None where the function takes a chain of calls.
+LIBRARY = {
+    "loop": ("torch.bmm(out_dtype=float32)", product_library),
+    "batched": ("torch.bmm(out_dtype=float32)", product_library),
+    "gram_loop": ("torch.einsum", gram_reference),
+    "gram_big": ("torch.einsum", gram_reference),
+    "vpu": None,
+}
 
 
 def main(argv=None) -> int:
@@ -235,8 +264,10 @@ def main(argv=None) -> int:
              if n in which or (n.startswith("gram") and "gram" in which)]
     for name in names:
         inputs = make_inputs(name, torch.device("cuda"))
-        for label, fn in ((name, KERNELS[name]),
-                          (f"{name}/plain", REFERENCES[name])):
+        rows = [(name, KERNELS[name]), (f"{name}/plain", REFERENCES[name])]
+        if name in ("loop", "batched"):
+            rows.append((f"{name}/library", product_library))
+        for label, fn in rows:
             ms = graph_ms(lambda fn=fn: fn(*inputs))
             eager = cuda_time_ms(lambda fn=fn: fn(*inputs))
             print(f"{label:16s}: {ms:8.3f} ms total, {ms / G * 1e3:8.2f} "

@@ -24,16 +24,17 @@ What the JAX chunked path does for the TPU and this port does not:
   * it shards subsets over a device mesh; the port runs on one device;
   * it dispatches chunk i + 1 before it fetches chunk i's results.  The
     port's solve synchronises every LM iteration, so there is nothing to
-    overlap: a chunk is solved, then its records are emitted.  should_stop
-    is polled before every chunk and before every frame's record; the JAX
-    loop polls at the next chunk's dispatch, before it emits the
-    previous chunk, so a stop raised while records are emitted can let it
-    emit one frame more.
-The chunked path seeds a fresh sequence from the frame-0 guess (p = prev =
-guess, engine.correlate_frames' default), so the second pair's
-extrapolated guess is p1 + (p1 - guess) as in the per-frame path; the
-JAX chunked path seeds p = 0 and extrapolates 2 p1, which differs when
-the global guess is not zero.
+    overlap: chunk i's records are emitted, then chunk i + 1 is solved.
+    should_stop is polled where the JAX loop polls it: once for chunk
+    i + 1, before chunk i's records are emitted (a stop there still emits
+    chunk i, then ends the run), and before each of a chunk's records
+    after its first.  The same should_stop so leaves the same records and
+    checkpoint in both packages.
+As the JAX chunked path does, a sequence's first chunk is seeded from the
+host state (p = params = 0, prev = the frame-0 guess), so the solver's
+guess for the second pair is 2 p1, while the records report the
+per-frame path's p1 + (p1 - guess); the two differ when the global guess
+is not zero (ROADMAP, findings against the JAX package).
 """
 
 from __future__ import annotations
@@ -577,11 +578,10 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
     n_points = batch.mask[0].sum(dim=-1).to(torch.int32).cpu().numpy()
     host_off = np.zeros((len(state.und_points), 2), np.float32)
     carry = None
-    frame = start_frame
-    while frame < total_pairs:
-        if should_stop is not None and should_stop():
-            save_ckpt(frame)
-            return
+
+    def solve(frame):
+        """Solve the chunk starting at `frame`: (frame, k, packed)."""
+        nonlocal carry
         k = min(cfg.frame_chunk, total_pairs - frame)
         base = und0 if ref_first else np.asarray(frames[frame], dtype)
         stack = np.stack(
@@ -589,11 +589,9 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
                       for j in range(k)]
         )
         if carry is None:
-            # A fresh sequence starts from the frame-0 guess (p = prev =
-            # guess0); a resumed one from the host state.
-            seeds = {} if frame == 0 else dict(
-                p_seed=state.params, prev_seed=state.prev_params,
-                chi_seed=state.chi, it_seed=state.iterations)
+            # The host state seeds the chain, fresh or resumed, as in JAX.
+            seeds = dict(p_seed=state.params, prev_seed=state.prev_params,
+                         chi_seed=state.chi, it_seed=state.iterations)
             if lagr:
                 seeds["ucen_seed"] = state.und_center
         else:
@@ -610,6 +608,11 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
             )
             packed = out["packed"].cpu().numpy()
         carry = out["carry"]
+        return frame, k, packed
+
+    def emit_chunk(frame, k, packed, halt):
+        """Emit a solved chunk's records; False when the run ends here."""
+        nonlocal host_off
         params_k = packed[..., :num_p]
         chi_k = packed[..., num_p]
         it_k = packed[..., num_p + 1].astype(np.int32)
@@ -645,16 +648,31 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
                 stop_now = True
                 break
         next_frame = frame + emitted
+        ends = stop_now or cancelled or halt
         if (
-            stop_now or cancelled or next_frame >= total_pairs
+            ends or next_frame >= total_pairs
             or (checkpointing
                 and any((frame + j + 1) % max(checkpoint_every, 1) == 0
                         for j in range(emitted)))
         ):
             save_ckpt(next_frame)
-        if stop_now or cancelled:
+        return not ends
+
+    # The next chunk is polled for before the solved one is emitted.
+    frame, pending = start_frame, None
+    while pending is not None or frame < total_pairs:
+        halt = (frame < total_pairs and should_stop is not None
+                and should_stop())
+        if pending is not None:
+            if not emit_chunk(*pending, halt):
+                return
+            pending = None
+        elif halt:
+            save_ckpt(frame)
             return
-        frame += k
+        if frame < total_pairs:
+            pending = solve(frame)
+            frame += pending[1]
 
 
 def run_sequence_from_files(

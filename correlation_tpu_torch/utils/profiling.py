@@ -7,12 +7,17 @@ it reads the clock, at both ends of a measured region.
 
 cuda_time_ms times eager calls, host issue included: for a kernel of tens
 of microseconds that is mostly the wrapper's host cost.  graph_ms replays
-the calls from a CUDA graph and so times the device alone.
+the calls from a CUDA graph and so times the device alone; inputs smaller
+than the card's 50 MB L2 then stay in it from call to call.
+graph_ms_cold rotates the calls over copies of the inputs so that each
+call finds its inputs evicted, as a caller that streams them from HBM
+would.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import subprocess
 import time
 
@@ -68,15 +73,16 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds per call of `fn`, without the host's cost of
-    issuing it: `reps` calls captured in one CUDA graph after a warm-up
-    call, the graph's second replay timed with CUDA events."""
-    fn()
+def _replay_ms(calls) -> float:
+    """Device milliseconds per call of the zero-argument `calls`, captured
+    in order in one CUDA graph after a warm-up of each, the graph's second
+    replay timed with CUDA events."""
+    for fn in calls:
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -86,7 +92,29 @@ def graph_ms(fn, reps: int = 20) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / len(calls)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of `fn`, without the host's cost of
+    issuing it: `reps` calls replayed from one CUDA graph."""
+    return _replay_ms([fn] * reps)
+
+
+L2_BYTES = 50 * 1024 * 1024  # the H100's L2 cache
+
+
+def graph_ms_cold(fn, inputs, reps: int = 20) -> float:
+    """As graph_ms for `fn(*inputs)`, with the inputs coming from HBM: the
+    calls rotate over copies of `inputs` whose other copies together exceed
+    the L2, and there are at least as many calls as copies, so every call
+    reads a copy that the calls since its last use have pushed out."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    copies = math.ceil(L2_BYTES / nbytes) + 1
+    sets = [list(inputs)] + [[t.clone() for t in inputs]
+                             for _ in range(copies - 1)]
+    n = max(reps, copies)
+    return _replay_ms([lambda c=sets[i % copies]: fn(*c) for i in range(n)])
 
 
 def card_name_and_power() -> str:

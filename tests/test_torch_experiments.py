@@ -135,3 +135,18 @@ def test_gram_variants_agree(stage_runs):
         em.stage_gram_loop(g[:, :, :7].contiguous())
     with pytest.raises(TypeError):
         em.stage_loop(g, g)
+
+
+def test_product_rejects_shapes_the_kernel_does_not_take():
+    """The product kernel stages a subset's a [K, M] whole in shared memory,
+    so K and M are at most 128 (P is free).  The wrappers raise for larger
+    ones on any device, so that a caller finds out before the card."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    assert em.stage_batched(zeros(1, 1, 128, 128),
+                            zeros(1, 1, 128, 700)).shape == (1, 1, 128, 700)
+    for k, m in ((em.MAX_K + 1, 8), (8, em.MAX_M + 1)):
+        for fn in (em.stage_loop, em.stage_batched):
+            with pytest.raises(ValueError, match="at most|<="):
+                fn(zeros(1, 1, k, m), zeros(1, 1, k, 16))

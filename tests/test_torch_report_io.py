@@ -92,13 +92,14 @@ def _partial_run(run, frames, pts, cfg, path, **kw):
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_checkpoint_resumes_in_the_other_package(lagr_runs, tmp_path, writer):
-    """A run stopped after two pairs resumes from its checkpoint in either
-    package with the same records.  (A resumed Lagrangian run rebuilds its
-    coarse levels from the moved points, so it need not equal the
-    uninterrupted run; both packages resume alike.)  The port polls
-    should_stop before every frame's record and stops after two; the JAX
-    loop has already dispatched the next chunk and emits its first frame
-    before it polls."""
+    """A run stopped while its records are emitted leaves the same records
+    and checkpoint in both packages, and resumes from it in either package
+    with the same records.  (A resumed Lagrangian run rebuilds its coarse
+    levels from the moved points, so it need not equal the uninterrupted
+    run; both packages resume alike.)  Both poll should_stop at the next
+    chunk's dispatch, before the first chunk's records, and before each
+    record after a chunk's first: the stop raised by frame 1's record lets
+    the second chunk emit frame 2, then ends the run."""
     frames, (ref, _) = lagr_runs
     pts = sectors(CENTERS)
     first = str(tmp_path / "first.npz")
@@ -109,7 +110,7 @@ def test_checkpoint_resumes_in_the_other_package(lagr_runs, tmp_path, writer):
     else:
         part = _partial_run(tseq.run_sequence, frames, pts, _port_cfg(**LAGR),
                             first, device="cpu")
-    n = 3 if writer == "jax" else 2
+    n = 3
     assert len(part) == n
     assert_same_records(ref[:n], part)
     for load in (jckpt.load_checkpoint, ckpt.load_checkpoint):
@@ -125,6 +126,41 @@ def test_checkpoint_resumes_in_the_other_package(lagr_runs, tmp_path, writer):
     assert len(by_port) == 4
     assert_same_records(by_jax, by_port)
     np.testing.assert_allclose(by_port[3].params, ref[3].params, atol=5e-3)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stop_at_each_poll_matches_jax(tmp_path, k):
+    """A should_stop that turns true at its k-th call ends both packages'
+    chunked runs after the same records, with the same checkpoint: 3 pairs
+    in chunks of 2 poll at chunk 0's dispatch, at chunk 1's dispatch (a
+    stop there still emits chunk 0's first record), then before chunk 0's
+    second record."""
+    frames = drift_frames(4, 1.3, -0.8)
+    pts = sectors(CENTERS)
+    runs = {}
+    for writer in ("jax", "port"):
+        calls = []
+
+        def should_stop():
+            calls.append(1)
+            return len(calls) >= k
+
+        path = str(tmp_path / f"{writer}.npz")
+        if writer == "jax":
+            with pallas_interpret():
+                recs = jseq.run_sequence(frames, pts, _jax_cfg(frame_chunk=2),
+                                         should_stop=should_stop,
+                                         checkpoint_path=path)
+        else:
+            recs = tseq.run_sequence(frames, pts, _port_cfg(frame_chunk=2),
+                                     should_stop=should_stop,
+                                     checkpoint_path=path, device="cpu")
+        runs[writer] = (recs, ckpt.load_checkpoint(path)[0], len(calls))
+    (ref, ref_next, ref_calls), (got, got_next, got_calls) = (
+        runs["jax"], runs["port"])
+    assert len(got) == {1: 0, 2: 1, 3: 1}[k]
+    assert got_next == ref_next == len(got) and got_calls == ref_calls
+    assert_same_records(ref, got)
 
 
 def test_checkpoint_round_trip_keeps_every_field(lagr_runs, tmp_path):

@@ -187,17 +187,21 @@ def test_chunked_lagrangian_matches_port_per_frame(frames):
 
 def test_nonzero_guess_chunked_matches_per_frame():
     """With a global guess that is not zero, the chunked Eulerian-First
-    chain extrapolates the second pair's guess from the guess, as the
-    per-frame path does."""
+    chain equals JAX's chunked chain: both seed the first chunk from the
+    host state, so the solver starts the second pair from 2 p1 while the
+    records report the per-frame path's p1 + (p1 - guess).  The solutions
+    stay within 1e-5 of the per-frame path's, with the same iterations."""
     frames = drift_frames(4, 0.6, -0.35)
     pts = sectors(CENTERS)
     guess = np.array([0.5, -0.2, 0.0, 0.0, 0.0, 0.0], np.float32)
-    kw = dict(solver=SolverConfig(pyramid=PyramidConfig(0, 1, 2)))
-    chunked = tseq.run_sequence(frames, pts, tseq.SequenceConfig(**kw),
-                                global_guess=guess, device="cpu")
-    single = tseq.run_sequence(frames, pts,
-                               tseq.SequenceConfig(frame_chunk=1, **kw),
-                               global_guess=guess, device="cpu")
+    ref, chunked = run_both(frames, pts, global_guess=guess)
+    assert len(chunked) == 3
+    assert_same_records(ref, chunked)
+    single = tseq.run_sequence(
+        frames, pts,
+        tseq.SequenceConfig(solver=SolverConfig(pyramid=PyramidConfig(0, 1, 2)),
+                            frame_chunk=1),
+        global_guess=guess, device="cpu")
     for a, b in zip(chunked, single):
         np.testing.assert_allclose(a.initial_guess, b.initial_guess,
                                    atol=1e-5)
@@ -209,8 +213,8 @@ def test_nonzero_guess_chunked_matches_per_frame():
 
 
 def test_nonzero_guess_per_frame_matches_jax():
-    """The per-frame path, which the chunked chain follows for a guess that
-    is not zero, equals JAX's per-frame path."""
+    """The per-frame path with a guess that is not zero equals JAX's
+    per-frame path."""
     frames = drift_frames(4, 0.6, -0.35)
     guess = np.array([0.5, -0.2, 0.0, 0.0, 0.0, 0.0], np.float32)
     ref, got = run_both(frames, sectors(CENTERS), frame_chunk=1,

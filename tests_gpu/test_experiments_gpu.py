@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,3 +81,51 @@ def test_gram_loop_equals_gram_big(dev):
     ok, err = em.agreement(em.stage_gram_loop(g), em.stage_gram_big(g),
                            em.terms_scale("gram_loop", [g]))
     assert ok, err
+
+
+def _product_inputs(dev, g, b, k, m, p, misalign=False):
+    """a [g, b, k, m], o [g, b, k, p] bfloat16 from a seed; with misalign,
+    each starts 2 bytes past a 16-byte boundary (the kernel's element-wise
+    path)."""
+    rng = np.random.default_rng(k * m + p)
+    out = []
+    for shape in ((g, b, k, m), (g, b, k, p)):
+        x = torch.from_numpy(rng.standard_normal(shape) * 0.1).float()
+        x = x.to(dev).to(torch.bfloat16)
+        if misalign:
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            x = buf[1:].view(shape).copy_(x)
+        out.append(x)
+    return out
+
+
+@pytest.mark.parametrize("shape", [
+    (6, 8, 120, 128, 512),  # the experiment's widths
+    (1, 1, 120, 100, 300),  # ragged: element-wise staging and stores
+    (1, 1, 37, 100, 300),   # K not a multiple of 16
+    (2, 3, 120, 64, 520),   # 16-byte path with a ragged last tile
+])
+def test_loop_equals_batched_bit_for_bit(dev, shape):
+    """One product routine, one summation order: the two grids give the
+    same bits, twice, within 1e-5 of the sum of |terms| of the plain
+    version."""
+    a, o = _product_inputs(dev, *shape)
+    loop = em.stage_loop(a, o)
+    batched = em.stage_batched(a, o)
+    again = em.stage_loop(a, o)
+    ref = em.product_reference(a, o)
+    torch.cuda.synchronize()
+    assert torch.equal(loop, batched)
+    assert torch.equal(loop, again)
+    ok, err = em.agreement(loop, ref, em.terms_scale("loop", [a, o]))
+    assert ok, f"{shape}: max |kernel - plain| {err}"
+
+
+def test_product_paths_agree_bit_for_bit(dev):
+    """Inputs off 16-byte alignment take the element-wise path: the same
+    products in the same order as the 16-byte path."""
+    shape = (2, 2, 120, 128, 512)
+    a, o = _product_inputs(dev, *shape)
+    a2, o2 = _product_inputs(dev, *shape, misalign=True)
+    assert a2.data_ptr() % 16 and torch.equal(a, a2) and torch.equal(o, o2)
+    assert torch.equal(em.stage_batched(a, o), em.stage_batched(a2, o2))
