@@ -30,6 +30,8 @@ Phases, one informational line each:
      are timed from HBM by rotating copies, beside their L2-resident time;
      beside each kernel, the one PyTorch call that computes its function,
      where there is one (torch.bmm with out_dtype, einsum, take_along_dim);
+     beside the gather, a kernel that does nothing (the launch floor),
+     timed the same way;
   8. sequence: run_sequence on 32 pairs of drifting 1024x1024 uint8 frames
      (4096 21x21 subsets, AFFINE/BICUBIC, levels 2-1-0) from an in-memory
      uint8 source, Eulerian-First and Lagrangian-Previous chunked 32 pairs
@@ -180,15 +182,16 @@ def experiments_phase(torch, dev, smi):
           f"an experiment kernel was never launched: {launches}")
 
     def record(name, src, line, err, inputs, out, fn, plain, library,
-               ops=0.0, kind="fp32"):
-        """The kernel's record: fn, plain and library (None, or (call,
-        function)) take `inputs`.  Inputs that fit in the L2 are timed from
-        HBM (graph_ms_cold), with the L2-resident time beside."""
+               ops=0.0, kind="fp32", library_inputs=None):
+        """The kernel's record: fn and plain take `inputs`, library (None,
+        or (call, function)) takes `library_inputs`, by default `inputs`.
+        Inputs that fit in the L2 are timed from HBM (graph_ms_cold), with
+        the L2-resident time beside."""
         cold = nbytes(*inputs) < L2_BYTES
 
-        def dev_ms(f):
-            return graph_ms_cold(f, inputs) if cold else graph_ms(
-                lambda: f(*inputs))
+        def dev_ms(f, ins=inputs):
+            return graph_ms_cold(f, ins) if cold else graph_ms(
+                lambda: f(*ins))
 
         bound_ms, bound_by = bound(nbytes(*inputs, out), ops, kind)
         rec = {
@@ -198,7 +201,8 @@ def experiments_phase(torch, dev, smi):
             "max_abs_err": err, "ms": dev_ms(fn), "plain_ms": dev_ms(plain),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_call": library and library[0],
-            "library_ms": library and dev_ms(library[1]),
+            "library_ms": library and dev_ms(library[1],
+                                             library_inputs or inputs),
         }
         warm = ""
         if cold:
@@ -220,8 +224,15 @@ def experiments_phase(torch, dev, smi):
     out = [record("gather_rows", "exp_gather.cu", "exp_gather.py:14", 0.0,
                   [src, idx], got, eg.gather_rows, eg.gather_rows_reference,
                   ("torch.take_along_dim",
-                   lambda s, i, il=idx.long(): torch.take_along_dim(
-                       s, il, dim=0)))]
+                   lambda s, i: torch.take_along_dim(s, i, dim=0)),
+                  library_inputs=[src, idx.long()])]
+    # Timed as gather_rows is: a kernel that does nothing, the launch floor
+    # under the bytes bound.
+    out[0]["launch_floor_ms"] = graph_ms_cold(
+        lambda s, i: eg.empty_launch(s.device), [src, idx])
+    print(f"experiments: empty kernel (launch floor) "
+          f"{out[0]['launch_floor_ms']:.4f} ms (graph, from HBM, as "
+          f"gather_rows; {smi})")
     lines = {"loop": 71, "batched": 83, "gram_loop": 94, "gram_big": 104,
              "vpu": 120}
     kept = {}
@@ -473,7 +484,8 @@ def main() -> int:
     sub = SubsetBatch([a[:CPU_SUBSETS] for a in batch.xy],
                       [m[:CPU_SUBSETS] for m in batch.mask],
                       batch.center0[:CPU_SUBSETS], batch.extents)
-    cpu = correlate_frames(cfg, stack[:3], sub, params0[:CPU_SUBSETS])
+    cpu = correlate_frames(cfg, stack[:3], sub, params0[:CPU_SUBSETS],
+                           device="cpu")
     g = {k: out[k][:2, :CPU_SUBSETS].cpu().numpy()
          for k in ("params", "iterations", "error")}
     c = {k: cpu[k].numpy() for k in ("params", "iterations", "error")}

@@ -107,7 +107,9 @@ class SolverConfig:
     # Where the assembly runs.  The device of the tensors decides: the CUDA
     # kernel on CUDA tensors, the plain PyTorch version on CPU tensors.
     # "auto" accepts either; "cuda" requires CUDA tensors and "torch" CPU
-    # tensors, and the solve raises on the other device.
+    # tensors, and the solve raises on the other device.  Given numpy input
+    # and no device, "torch" solves on the CPU and "cuda" and "auto" on
+    # the card, raising where there is none (engine.resolve_device).
     backend: str = "auto"
     # Extra pixels of warp headroom in the per-subset image tiles: warps
     # that grow the subset span by more than this flag the subset

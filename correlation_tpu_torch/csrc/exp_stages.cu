@@ -7,10 +7,11 @@
 // same function and differ in how the work is laid out, which is what the
 // experiment measures.  On Hopper the questions become: one block walking
 // its subsets in turn against one block per subset (loop / batched), and
-// one warp per subset against one block packing B subsets into one large
-// Gram (gram_loop / gram_big), the packing choice of the fused assembly at
-// pyramid levels 1 and 2.  Sizes (exp_matmul_overhead.py:20-21): G = 256
-// steps of B = 8 subsets, K = 120, M = 128, P = 512, TW = 32.
+// one warp per subset on the CUDA cores against subsets packed into
+// tensor-core products (gram_loop / gram_big), the packing choice of the
+// fused assembly at pyramid levels 1 and 2.  Sizes
+// (exp_matmul_overhead.py:20-21): G = 256 steps of B = 8 subsets, K = 120,
+// M = 128, P = 512, TW = 32.
 //
 //   loop, batched  out[g,b] = a[g,b]^T o[g,b]: a [G,B,K,M], o [G,B,K,P] bf16,
 //                  out [G,B,M,P] f32 (k_loop / k_batch).  Bound: 851 MB of
@@ -51,25 +52,50 @@
 //                  assembly's reduction).  Reads 32 MiB (2048 subsets x 8 x
 //                  512 f32) once for 75 MFLOP: bound by memory, ~10 us at
 //                  HBM bandwidth, less where the input sits in the 50 MB L2.
-//   gram_big       the same function computed as the TPU kernel did: one
-//                  block per g stages the [8B, P] rows in shared memory
-//                  (128 KB, row stride P + 1 so that rows fall in distinct
-//                  banks) and forms the whole [8B, 8B] Gram, 4 x 4 outputs a
-//                  thread, keeping only the B diagonal 8 x 8 blocks: B times
-//                  the work of gram_loop (1.1 GFLOP), and at 128 KB of shared
-//                  memory one block an SM, so 256 blocks run in two waves on
-//                  132 SMs with no overlap of staging and arithmetic.
+//   gram_big       the same function with subsets packed into one product,
+//                  as the TPU kernel packed B of them, on the tensor cores:
+//                  mma.sync m16n8k8 TF32 -> f32 with two subsets' 16 rows as
+//                  A and one subset's 8 rows as B, so each product yields
+//                  one wanted diagonal block and one discarded cross block
+//                  (2x the needed work, against 8x for the [8B, 8B] Gram).
+//                  In the fragment layouts a lane's A registers for one
+//                  subset are, register for register, that subset's B
+//                  fragment, and the sum over P may run in any pixel order
+//                  A and B share: so each lane loads float4s of consecutive
+//                  pixels straight into registers (no shared memory) and
+//                  each float4 feeds two k-steps.  A block of 8 warps takes
+//                  a pair of subsets, each warp every 8th 32-pixel chunk
+//                  (two at P = 512), one chunk's loads in flight; the warps'
+//                  partial Grams add in shared memory in a fixed order.
+//                  1024 blocks of 256 threads, 50 registers.  On the card
+//                  (experiments/design_sweep.py, NVIDIA H100 80GB HBM3,
+//                  700 W) 4 warps with 1, 2 or 4 chunks in flight and 8
+//                  with 1 took the same time within the noise, 0.0154-0.0158
+//                  ms from HBM; 8 warps halve each warp's chain of
+//                  tensor-core additions, and the error with it (max
+//                  |kernel - plain| 3.3e-6 against 5.2e-6).  1 or 2 warps
+//                  (0.018-0.027 ms, up to 2.0e-5) and 8 with 4 chunks
+//                  (0.020 ms) were slower.  Plain TF32 (2^-11 relative a
+//                  term) misses the 1e-5 x sum |terms| tolerance, so each
+//                  value splits as hi = tf32(x), lo = tf32(x - hi) and the
+//                  Gram is hi hi + (hi lo + lo hi), the cross terms in an
+//                  accumulator of their own (about 2^-21 a term).  Bound by
+//                  memory: 33.5 MB read, 0.01 ms; the tensor cores' share
+//                  is under a microsecond.  P not a multiple of 4, or rows
+//                  off 16-byte alignment, load element by element with the
+//                  same pixel order; pixels past P and the missing partner
+//                  of an odd subset count are zeros, which add nothing.
 //   vpu            the column-weight stage and three multiply-reduce stages:
 //                  sel [G,B,4TW,P], rx [G,B,1,P] f32 -> out [G,B,3,P] f32,
 //                  one thread per (g, b, p).  Reads 512 MB once: bound by
 //                  HBM bandwidth.
 //
 // The products' bf16 x bf16 terms are exact in f32 and the tensor cores
-// add them in their own order; the other kernels' sums run in a fixed
-// order and every element-wise step rounds as the plain PyTorch versions'
-// do (-fmad=false, with explicit fmaf in the Gram accumulations).  Only
-// the order of the sums differs from those versions, so results agree to
-// f32 summation error.
+// add them in their own order; gram_big's terms carry the split's 2^-21;
+// the other kernels' sums run in a fixed order and every element-wise step
+// rounds as the plain PyTorch versions' do (-fmad=false, with explicit
+// fmaf in gram_loop).  So results agree with those versions to f32
+// summation error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -351,57 +377,136 @@ __global__ void __launch_bounds__(kGramThreads) stage_gram_loop_kernel(
         o[i * 8 + j] = acc[i <= j ? tri8(i, j) : tri8(j, i)];
 }
 
-__global__ void __launch_bounds__(kGramThreads) stage_gram_big_kernel(
-    const float* __restrict__ g, int B, int P, float* __restrict__ out) {
-  extern __shared__ float rows[];  // [8B][P + 1]
-  const int R = 8 * B, ld = P + 1;
-  const float* x = g + (size_t)blockIdx.x * R * P;
-  for (int e = threadIdx.x; e < R * P; e += kGramThreads)
-    rows[(e / P) * ld + e % P] = x[e];
-  __syncthreads();
-  const int side = R / 4;  // 4 x 4 output tiles per side
-  for (int t = threadIdx.x; t < side * side; t += kGramThreads) {
-    const int r0 = (t / side) * 4, c0 = (t % side) * 4;
-    // Four partial sums per output (p mod 4), added pairwise at the end.
-    float acc[4][4][4];
+// gram_big: a block of kBigWarps warps per pair of subsets (s0, s1).  Warp
+// w takes the kChunk-pixel chunks w, w + kBigWarps, ... of both subsets'
+// rows, kDepth of them loaded before their products; the warps' partial
+// Grams meet in shared memory.  experiments/design_sweep.py builds and
+// times other warp counts and depths through GRAM_BIG_WARPS and
+// GRAM_BIG_DEPTH; the defaults are the design it chose.
+#ifndef GRAM_BIG_WARPS
+#define GRAM_BIG_WARPS 8
+#endif
+#ifndef GRAM_BIG_DEPTH
+#define GRAM_BIG_DEPTH 1
+#endif
+constexpr int kBigWarps = GRAM_BIG_WARPS;  // a power of two, 1 to 8
+constexpr int kBigThreads = 32 * kBigWarps;
+constexpr int kChunk = 32;  // pixels of each row a warp takes a chunk
+constexpr int kDepth = GRAM_BIG_DEPTH;
+static_assert(kBigWarps >= 1 && kBigWarps <= 8 &&
+                  (kBigWarps & (kBigWarps - 1)) == 0,
+              "GRAM_BIG_WARPS: 1, 2, 4 or 8");
+static_assert(kDepth >= 1, "GRAM_BIG_DEPTH: at least 1");
+
+// x rounded to TF32 (nearest, ties away), as an f32 with the 13 low
+// mantissa bits cleared, so that x - tf32_rna(x) is exact.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// d += A B for one 16 x 8 x 8 step: A in a0..a3, B in b0, b1 (TF32).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1,
+                                         float a2, float a3, float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
+        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// One k-step of 8 pixels.  Lane (r, t) holds row r of subset 0 (u) and of
+// subset 1 (w) at the step's pixels t and t + 4: A = [u; w] has them at
+// (r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4), and subset 0's B (u^T)
+// has the same u at (t, r), (t + 4, r): the same registers.  d += hi hi,
+// e += hi lo + lo hi (the 3xTF32 split; lo lo is below f32 rounding).
+__device__ __forceinline__ void gram_step(float (&d0)[4], float (&e0)[4],
+                                          float (&d1)[4], float (&e1)[4],
+                                          float u0, float u1, float w0,
+                                          float w1) {
+  const float uh0 = tf32_rna(u0), uh1 = tf32_rna(u1);
+  const float wh0 = tf32_rna(w0), wh1 = tf32_rna(w1);
+  const float ul0 = tf32_rna(u0 - uh0), ul1 = tf32_rna(u1 - uh1);
+  const float wl0 = tf32_rna(w0 - wh0), wl1 = tf32_rna(w1 - wh1);
+  mma_tf32(e0, ul0, wl0, ul1, wl1, uh0, uh1);
+  mma_tf32(e0, uh0, wh0, uh1, wh1, ul0, ul1);
+  mma_tf32(d0, uh0, wh0, uh1, wh1, uh0, uh1);
+  mma_tf32(e1, ul0, wl0, ul1, wl1, wh0, wh1);
+  mma_tf32(e1, uh0, wh0, uh1, wh1, wl0, wl1);
+  mma_tf32(d1, uh0, wh0, uh1, wh1, wh0, wh1);
+}
+
+// row[p .. p + 3], zeros past P or where !ok.  kVec: one 16-byte load (P a
+// multiple of 4, rows 16-byte aligned); else element by element.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int p,
+                                        int P, bool ok) {
+  if (kVec)
+    return ok && p < P ? __ldg(reinterpret_cast<const float4*>(row + p))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  float v[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+  for (int j = 0; j < 4; ++j) v[j] = ok && p + j < P ? __ldg(row + p + j) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBigThreads) stage_gram_big_kernel(
+    const float* __restrict__ g, int n, int P, float* __restrict__ out) {
+  __shared__ float part[kBigWarps][128];  // per warp: 2 subsets x 64
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane >> 2, t = lane & 3;
+  const size_t s0 = 2 * (size_t)blockIdx.x;
+  const bool has1 = s0 + 1 < (size_t)n;  // odd n: subset 1 is zeros
+  const float* x0 = g + (s0 * 8 + r) * P;
+  const float* x1 = x0 + (size_t)8 * P;
+  float d0[4] = {}, e0[4] = {}, d1[4] = {}, e1[4] = {};
+  for (int c = warp * kChunk; c < P; c += kDepth * kBigWarps * kChunk) {
+    // Lane t takes pixels 4t .. 4t + 3 and 16 + 4t .. 19 + 4t of a chunk;
+    // each float4 feeds two k-steps.  The pixels' order within the sum is
+    // free as long as A and B share it, and they share registers.
+    float4 u[kDepth][2], w[kDepth][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < kDepth; ++q)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[q][i][j] = 0.f;
-    int p = 0;
-    for (; p + 4 <= P; p += 4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float rv[4], cv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) rv[i] = rows[(r0 + i) * ld + p + q];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cv[j] = rows[(c0 + j) * ld + p + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[q][i][j] = fmaf(rv[i], cv[j], acc[q][i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int p = c + q * kBigWarps * kChunk + 16 * h + 4 * t;
+        u[q][h] = load4<kVec>(x0, p, P, true);
+        w[q][h] = load4<kVec>(x1, p, P, has1);
       }
-    }
-    for (; p < P; ++p) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < kDepth; ++q)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[0][i][j] = fmaf(rows[(r0 + i) * ld + p], rows[(c0 + j) * ld + p],
-                              acc[0][i][j]);
-    }
-    if (r0 / 8 != c0 / 8) continue;  // off the diagonal blocks: discarded
-    float* o = out + ((size_t)blockIdx.x * B + r0 / 8) * 64;
+      for (int h = 0; h < 2; ++h) {
+        gram_step(d0, e0, d1, e1, u[q][h].x, u[q][h].y, w[q][h].x,
+                  w[q][h].y);
+        gram_step(d0, e0, d1, e1, u[q][h].z, u[q][h].w, w[q][h].z,
+                  w[q][h].w);
+      }
+  }
+  // D's lane (r, t) holds rows r and r + 8, columns 2t and 2t + 1: subset
+  // 0's Gram in d0[0..1] (rows 0-7 of A B(u)), subset 1's in d1[2..3] (rows
+  // 8-15 of A B(w)); the other halves are the discarded cross products.
+  float* mine = part[warp];
+  mine[r * 8 + 2 * t] = d0[0] + e0[0];
+  mine[r * 8 + 2 * t + 1] = d0[1] + e0[1];
+  mine[64 + r * 8 + 2 * t] = d1[2] + e1[2];
+  mine[64 + r * 8 + 2 * t + 1] = d1[3] + e1[3];
+  __syncthreads();
+  // The 128 outputs, each the warps' partials added neighbours first:
+  // (p0 + p1) + (p2 + p3) for four warps.
+  for (int i = threadIdx.x; i < 128; i += kBigThreads) {
+    float v[kBigWarps];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < kBigWarps; ++q) v[q] = part[q][i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        o[((r0 + i) % 8) * 8 + (c0 + j) % 8] =
-            (acc[0][i][j] + acc[1][i][j]) + (acc[2][i][j] + acc[3][i][j]);
+    for (int m = kBigWarps / 2; m > 0; m /= 2)
+#pragma unroll
+      for (int q = 0; q < m; ++q) v[q] = v[2 * q] + v[2 * q + 1];
+    if (s0 + i / 64 < (size_t)n) out[s0 * 64 + i] = v[0];
   }
 }
 
@@ -479,14 +584,13 @@ int stage_gram_launch(int big, const float* g, int G, int B, int P,
                              0, stream>>>(g, n, P, out);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)8 * B * (P + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stage_gram_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  stage_gram_big_kernel<<<G, kGramThreads, smem, stream>>>(g, B, P, out);
+  const int n = G * B, pairs = (n + 1) / 2;
+  if (P % 4 == 0 && (uintptr_t)g % 16 == 0)
+    stage_gram_big_kernel<true><<<pairs, kBigThreads, 0, stream>>>(g, n, P,
+                                                                   out);
+  else
+    stage_gram_big_kernel<false><<<pairs, kBigThreads, 0, stream>>>(g, n, P,
+                                                                    out);
   return (int)cudaGetLastError();
 }
 

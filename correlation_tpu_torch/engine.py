@@ -344,6 +344,26 @@ def correlate_prepared(
     )
 
 
+def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
+    """Where a solve runs: `device` when the caller names one, else the
+    device of `like` when it is a tensor, else the card for backend "cuda"
+    and "auto" (raising RuntimeError when there is none) and the CPU for
+    backend "torch"."""
+    if device is not None:
+        return torch.device(device)
+    if torch.is_tensor(like):
+        return like.device
+    if cfg.backend == "torch":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"backend {cfg.backend!r} solves on a CUDA device and none is "
+            "available; pass device='cpu' or use backend 'torch' to solve "
+            "on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def _as_f32(a, device):
     """A float32 tensor on `device`; numpy input is copied (it may be a
     read-only view) and moved in its own dtype, then cast on the device."""
@@ -365,11 +385,10 @@ def correlate(
     und_pyramid / def_pyramid: lists of [H_l, W_l, C] images (numpy or
     tensors; see ops.pyramid.build_pyramid).  subsets: a
     domains.SubsetBatch.  params0: [S, NP] guesses at level-0 scale.
-    device: where to solve (default: the device of und_pyramid[0]).
+    device: where to solve (default: resolve_device, the device of
+    und_pyramid[0] when it is a tensor).
     """
-    if device is None:
-        device = (und_pyramid[0].device if torch.is_tensor(und_pyramid[0])
-                  else torch.device("cpu"))
+    device = resolve_device(cfg, device, und_pyramid[0])
     und = [_as_f32(a, device) for a in und_pyramid]
     dfm = [_as_f32(a, device) for a in def_pyramid]
     statics = compute_level_statics(cfg, subsets, dfm)
@@ -416,8 +435,8 @@ def correlate_frames(
     frames_stack: [K+1, H, W, C] uint8 or float32 frames; element 0 is the
     chunk's undeformed base (sequence frame 0 for reference-First, the
     preceding frame otherwise), 1..K the deformed frames.  The stack is
-    cast to float32 on `device` (default: its own device, or the CPU for
-    numpy input).  subsets: a domains.SubsetBatch, the sequence-start
+    cast to float32 on `device` (default: resolve_device, its own device
+    when it is a tensor).  subsets: a domains.SubsetBatch, the sequence-start
     geometry for `lagrangian`.
 
     Chaining, as the JAX scan:
@@ -444,9 +463,7 @@ def correlate_frames(
     iterations, error), and the carry (p, prev, chi, iterations, plus off
     and ucen for lagrangian) for the next chunk.
     """
-    if device is None:
-        device = (frames_stack.device if torch.is_tensor(frames_stack)
-                  else torch.device("cpu"))
+    device = resolve_device(cfg, device, frames_stack)
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1
     pyr = build_pyramid(frames, cfg.pyramid.stop)

@@ -3,17 +3,20 @@
 Port of experiments/exp_gather.py, a TPU experiment on a per-lane sublane
 gather inside a Pallas kernel.  On the card the same gather is the fused
 assembly's tile read, and `gather_rows` launches the hand-written CUDA
-kernel csrc/exp_gather.cu (the tile staged in shared memory, one thread
-per column).  `gather_rows_reference` is its plain PyTorch version.
+kernel csrc/exp_gather.cu: a block stages a 32-column slab of src in
+shared memory and gathers from it.  `gather_rows_reference` is its plain
+PyTorch version.
 
 Run on a machine with an NVIDIA GPU:
 
   python -m correlation_tpu_torch.experiments.exp_gather
 
 It prints the JAX script's line (the kernel's result against NumPy's
-take_along_axis) and the kernel's and the plain version's times, device
-time from a CUDA graph and eager time with the host's issue cost, with the
-card's name and power limit; without a CUDA device it exits with 1.
+take_along_axis), then the device time from a CUDA graph, inputs read from
+HBM (utils/profiling.graph_ms_cold), of the kernel, of the plain version,
+of one torch.take_along_dim call and of a launch that does nothing
+(empty_launch), with the card's name and power limit; without a CUDA
+device it exits with 1.
 """
 
 from __future__ import annotations
@@ -85,29 +88,40 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def empty_launch(device) -> None:
+    """Launch a CUDA kernel that does nothing on the current stream: the
+    floor under any kernel's time.  Not counted."""
+    from correlation_tpu_torch.ops._build import check_launch, load_library
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check_launch(load_library().empty_kernel_launch(ctypes.c_void_p(stream)),
+                 "empty")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("exp_gather: needs a CUDA device", file=sys.stderr)
         return 1
     from correlation_tpu_torch.utils.profiling import (
         card_name_and_power,
-        cuda_time_ms,
-        graph_ms,
+        graph_ms_cold,
     )
 
     src, idx = make_inputs(torch.device("cuda"))
-    out = gather_rows(src, idx).cpu().numpy()
     ref = np.take_along_axis(src.cpu().numpy(), idx.cpu().numpy(), axis=0)
-    err = np.abs(out - ref).max()
-    print("take_along_axis sublane gather: OK, max err", err)
-    times = [
-        f"{label} {graph_ms(fn):.4f} ms (graph), {cuda_time_ms(fn):.4f} ms "
-        "(eager)"
-        for label, fn in (("kernel", lambda: gather_rows(src, idx)),
-                          ("plain", lambda: gather_rows_reference(src, idx)))
-    ]
-    print(f"gather_rows [{N}, {P}] from [{TH}, {P}]: {'; '.join(times)} "
-          f"({card_name_and_power()})")
+    out = gather_rows(src, idx).cpu().numpy()
+    print("take_along_axis sublane gather: OK, max err", np.abs(out - ref).max())
+    fns = {  # name: (fn, its inputs); take_along_dim takes int64 indices
+        "kernel": (gather_rows, [src, idx]),
+        "plain": (gather_rows_reference, [src, idx]),
+        "take_along_dim": (lambda s, i: torch.take_along_dim(s, i, dim=0),
+                           [src, idx.long()]),
+        "empty kernel": (lambda s, i: empty_launch(s.device), [src, idx]),
+    }
+    times = "; ".join(f"{k} {graph_ms_cold(fn, ins):.4f} ms"
+                      for k, (fn, ins) in fns.items())
+    print(f"gather_rows [{N}, {P}] from [{TH}, {P}], graph, from HBM: "
+          f"{times} ({card_name_and_power()})")
     return 0
 
 

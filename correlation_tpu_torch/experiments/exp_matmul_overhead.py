@@ -9,8 +9,9 @@ version here:
              walking its B subsets
   batched    the same product by the same routine, one block per subset
   gram_loop  the 8 x 8 Gram of each subset's [8, P] rows, a warp a subset
-  gram_big   the same Gram from one [8B, 8B] product per block, keeping
-             its B diagonal blocks
+  gram_big   the same Gram from packed products on the tensor cores: two
+             subsets' 16 rows against each subset's 8, TF32 in the
+             3xTF32 split, keeping the diagonal blocks
   vpu        the column weights and three multiply-reduce stages
 
 Sizes as in the JAX script: G = 256 steps of B = 8 subsets, K = 120,
@@ -207,7 +208,8 @@ def stage_gram_loop(g: torch.Tensor) -> torch.Tensor:
 
 
 def stage_gram_big(g: torch.Tensor) -> torch.Tensor:
-    """As stage_gram_loop; on the card one [8B, 8B] Gram per block."""
+    """As stage_gram_loop; on the card a block per pair of subsets packs
+    them into one tensor-core product (csrc/exp_stages.cu)."""
     return _gram("gram_big", g)
 
 

@@ -124,6 +124,8 @@ def load_library():
             ]
             lib.fused_assemble_error_string.restype = ctypes.c_char_p
             lib.fused_assemble_error_string.argtypes = [i32]
+            lib.empty_kernel_launch.restype = i32
+            lib.empty_kernel_launch.argtypes = [vp]  # stream
             # Each launcher ends with (out, stream) and returns cudaError_t.
             launchers = {
                 "gather_rows_launch": [vp, vp, i32, i32, i32],  # src, idx, rows, cols, n

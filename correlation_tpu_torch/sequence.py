@@ -55,7 +55,11 @@ from correlation_tpu_torch.config import (
     SolverConfig,
 )
 from correlation_tpu_torch.domains import make_batch
-from correlation_tpu_torch.engine import correlate, correlate_frames
+from correlation_tpu_torch.engine import (
+    correlate,
+    correlate_frames,
+    resolve_device,
+)
 from correlation_tpu_torch.models.warp import warp_points
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 
@@ -336,16 +340,6 @@ def _uv(params: np.ndarray) -> np.ndarray:
     return uv
 
 
-def _default_device(solver: SolverConfig) -> torch.device:
-    """backend "cuda" -> the card, "torch" -> the CPU, "auto" -> the card
-    when there is one."""
-    if solver.backend == "cuda" or (
-        solver.backend == "auto" and torch.cuda.is_available()
-    ):
-        return torch.device("cuda")
-    return torch.device("cpu")
-
-
 def run_sequence(
     frames,
     point_lists: list[np.ndarray],
@@ -384,7 +378,8 @@ def run_sequence(
         pairs and at a stop or cancel.
       checkpoint_every: checkpoint period in frame pairs.
       on_frame: optional callback(record) after each frame pair.
-      device: where to solve (default: see _default_device).
+      device: where to solve (default: engine.resolve_device, the card
+        unless the backend is "torch"; raises without one).
 
     Returns:
       One FrameRecord per frame pair solved.
@@ -393,7 +388,7 @@ def run_sequence(
     solver = cfg.solver
     model = solver.model
     num_params = solver.num_params
-    device = _default_device(solver) if device is None else torch.device(device)
+    device = resolve_device(solver, device)
     if global_guess is None:
         global_guess = np.zeros(num_params, np.float32)
     if global_center is None:
@@ -691,6 +686,8 @@ def run_sequence_from_files(
     mark of decoded frames held at once."""
     from correlation_tpu_torch.io import FramePrefetcher
 
+    # Before any decoding: raises where the default device is missing.
+    kwargs["device"] = resolve_device(cfg.solver, kwargs.get("device"))
     # The chunked path stages frame_chunk frames at a time.
     ahead = max(
         2,

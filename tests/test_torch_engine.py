@@ -85,7 +85,7 @@ def _solve_both(model, interp, stop, und, dfm, subsets, guesses, **kw):
     got = engine.correlate(
         port_cfg, [np.asarray(a) for a in und_pyr],
         [np.asarray(a) for a in def_pyr], make_batch(subsets, None, stop),
-        guesses,
+        guesses, device="cpu",
     )
     return ref, got, und_pyr, def_pyr
 
@@ -195,7 +195,7 @@ def test_interior_subsets_match_jax_xla_sep():
     got = engine.correlate(
         port_cfg, [np.asarray(a) for a in und_pyr],
         [np.asarray(a) for a in def_pyr], make_batch(subsets, None, 2),
-        guesses,
+        guesses, device="cpu",
     )
     assert len(subsets) == 25
     _assert_same_solve(ref, got)
@@ -209,20 +209,78 @@ def test_backend_option():
     dfm = spk.warped_image(u=0.4, v=0.2, quantize=True)[..., None]
     batch = make_batch([_grid(20, 20, 40, 40)], None, 0)
     cfg = SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0))
-    auto = engine.correlate(cfg, [und], [dfm], batch, np.zeros((1, 2)))
+    auto = engine.correlate(cfg, [und], [dfm], batch, np.zeros((1, 2)),
+                            device="cpu")
     plain = engine.correlate(
         SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0),
                      backend="torch"),
         [und], [dfm], batch, np.zeros((1, 2)),
     )
-    # On CPU tensors "auto" and "torch" both run the plain version.
+    # On CPU tensors "auto" and "torch" both run the plain version, and
+    # "torch" solves on the CPU without being told.
+    assert auto.params.device.type == plain.params.device.type == "cpu"
     assert torch.equal(auto.params, plain.params)
     assert torch.equal(auto.iterations, plain.iterations)
     with pytest.raises(ValueError):
         engine.correlate(
             SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0),
                          backend="cuda"),
-            [und], [dfm], batch, np.zeros((1, 2)),
+            [und], [dfm], batch, np.zeros((1, 2)), device="cpu",
         )
     with pytest.raises(ValueError):
         SolverConfig(backend="pallas")
+
+
+def _one_subset_problem():
+    spk = Speckle(64, 64, seed=5)
+    und = spk.image(quantize=True)[..., None]
+    dfm = spk.warped_image(u=0.4, v=0.2, quantize=True)[..., None]
+    return und, dfm, make_batch([_grid(20, 20, 40, 40)], None, 0)
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+@pytest.mark.parametrize("entry", ["correlate", "correlate_frames"])
+def test_default_device_is_the_card(monkeypatch, entry, backend):
+    """Numpy input and no device: backends "auto" and "cuda" solve on the
+    card, so without one they raise and name it; nothing falls back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    und, dfm, batch = _one_subset_problem()
+    cfg = SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0),
+                       backend=backend)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        if entry == "correlate":
+            engine.correlate(cfg, [und], [dfm], batch, np.zeros((1, 2)))
+        else:
+            engine.correlate_frames(cfg, np.stack([und, dfm]), batch,
+                                    np.zeros((1, 2)))
+    assert engine.resolve_device(cfg, "cpu") == torch.device("cpu")
+
+
+def test_resolve_device_rule(monkeypatch):
+    """A named device wins, then the device of a tensor input, then the
+    backend: "torch" -> the CPU, "auto" / "cuda" -> the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    auto, plain = SolverConfig(), SolverConfig(backend="torch")
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert engine.resolve_device(auto) == cuda
+    assert engine.resolve_device(SolverConfig(backend="cuda")) == cuda
+    assert engine.resolve_device(plain) == cpu
+    assert engine.resolve_device(auto, like=torch.zeros(1)) == cpu
+    assert engine.resolve_device(plain, "cuda:0") == torch.device("cuda:0")
+    assert engine.resolve_device(auto, like=np.zeros(1)) == cuda
+
+
+def test_torch_backend_frames_on_the_cpu_by_default():
+    """Backend "torch" with numpy input and no device equals the explicit
+    device="cpu" run of "auto"."""
+    und, dfm, batch = _one_subset_problem()
+    stack = np.stack([und, dfm, dfm])
+    kw = dict(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0))
+    plain = engine.correlate_frames(SolverConfig(backend="torch", **kw),
+                                    stack, batch, np.zeros((1, 2)))
+    auto = engine.correlate_frames(SolverConfig(**kw), stack, batch,
+                                   np.zeros((1, 2)), device="cpu")
+    assert plain["params"].device.type == "cpu"
+    for key in ("params", "iterations", "error"):
+        assert torch.equal(plain[key], auto[key])

@@ -78,7 +78,8 @@ def jax_run(problem):
 def _port(frames, pts, **kw):
     cfg = SolverConfig(pyramid=PyramidConfig(0, 1, 2))
     return correlate_frames(cfg, frames, make_batch(pts, None, 2),
-                            np.zeros((len(pts), 6), np.float32), **kw)
+                            np.zeros((len(pts), 6), np.float32), device="cpu",
+                            **kw)
 
 
 def test_pyramids_agree_for_this_stack(problem):

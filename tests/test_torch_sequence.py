@@ -231,15 +231,49 @@ def test_correlate_frames_previous_and_stop_frame_modes():
     batch = make_batch(sectors(CENTERS[:2]), None, 2)
     cfg = SolverConfig(pyramid=PyramidConfig(0, 1, 2))
     prev = correlate_frames(cfg, frames, batch, np.zeros((2, 6), np.float32),
-                            reference_first=False, stop_frame=True)
+                            reference_first=False, stop_frame=True,
+                            device="cpu")
     np.testing.assert_allclose(prev["params"][:, :, :2].numpy(),
                                np.tile([1.3, -0.8], (2, 2, 1)), atol=0.02)
     lagr = correlate_frames(cfg, frames, batch, np.zeros((2, 6), np.float32),
                             reference_first=False, lagrangian=True,
-                            float_centers=False)
+                            float_centers=False, device="cpu")
     assert len(lagr["carry"]) == 6
     off, ucen = lagr["carry"][4:]
     np.testing.assert_array_equal(off.numpy(), np.tile([1.0, -1.0], (2, 1)))
     np.testing.assert_allclose(
         ucen.numpy(),
         batch.center0 + lagr["params"][0, :, :2].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["run_sequence", "run_sequence_from_files"])
+def test_default_device_without_a_card_raises(monkeypatch, tmp_path, entry):
+    """Backend "auto" and no device: the sequence solves on the card, so
+    without one it raises before any frame is read; nothing falls back to
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tseq.SequenceConfig(solver=SolverConfig(pyramid=PyramidConfig(0, 1, 2)))
+    pts = sectors(CENTERS[:1])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        if entry == "run_sequence":
+            tseq.run_sequence(drift_frames(2, 0.6, -0.35), pts, cfg)
+        else:
+            missing = [str(tmp_path / f"frame_{i}.png") for i in range(2)]
+            tseq.run_sequence_from_files(missing, pts, cfg)
+
+
+def test_torch_backend_runs_on_the_cpu_by_default():
+    """Backend "torch" and no device solves on the CPU and gives the
+    records of backend "auto" with device="cpu"."""
+    frames = drift_frames(3, 0.6, -0.35)
+    pts = sectors(CENTERS[:2])
+    solver = dict(pyramid=PyramidConfig(0, 1, 2))
+    plain = tseq.run_sequence(frames, pts, tseq.SequenceConfig(
+        solver=SolverConfig(backend="torch", **solver)))
+    auto = tseq.run_sequence(frames, pts, tseq.SequenceConfig(
+        solver=SolverConfig(**solver)), device="cpu")
+    assert len(plain) == len(auto) == 2
+    for a, b in zip(plain, auto):
+        np.testing.assert_array_equal(a.params, b.params)
+        np.testing.assert_array_equal(a.iterations, b.iterations)
+        np.testing.assert_array_equal(a.error, b.error)

@@ -41,6 +41,39 @@ def test_gather_equals_plain(dev):
                        eg.gather_rows_reference(wide, wide_idx))
 
 
+@pytest.mark.parametrize("rows,cols,n", [
+    (64, 700, 16),   # a ragged last slab
+    (64, 33, 16),    # one live lane in the last slab
+    (64, 1, 16),     # one column
+    (1, 512, 16),    # one row: every index 0
+    (200, 512, 16),  # more rows than a block has warps
+    (64, 512, 1),    # one gathered row
+    (200, 33, 1),
+    (64, 512, 40),   # more gathered rows than a block has warps
+    # More rows than a block's shared memory holds (1816): the rows past
+    # it are read straight from memory.
+    (2000, 40, 3),
+])
+def test_gather_shapes_bit_for_bit(dev, rows, cols, n):
+    rng = np.random.default_rng(rows * cols + n)
+    src = torch.from_numpy(rng.standard_normal((rows, cols))).float().to(dev)
+    idx = torch.from_numpy(rng.integers(0, rows, (n, cols))).int().to(dev)
+    assert torch.equal(eg.gather_rows(src, idx),
+                       eg.gather_rows_reference(src, idx))
+
+
+def test_gather_misaligned_equals_plain(dev):
+    """src and idx 4 bytes past a 16-byte boundary."""
+    src, idx = eg.make_inputs(dev)
+    bufs = [torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            for t in (src, idx)]
+    src2, idx2 = (b[1:].view(t.shape).copy_(t)
+                  for b, t in zip(bufs, (src, idx)))
+    assert src2.data_ptr() % 16 and idx2.data_ptr() % 16
+    assert torch.equal(eg.gather_rows(src2, idx2),
+                       eg.gather_rows_reference(src, idx))
+
+
 def test_gather_index_out_of_range_stops_kernel(dev):
     # The kernel traps, which leaves the CUDA context unusable: run it in a
     # process of its own.
@@ -81,6 +114,38 @@ def test_gram_loop_equals_gram_big(dev):
     ok, err = em.agreement(em.stage_gram_loop(g), em.stage_gram_big(g),
                            em.terms_scale("gram_loop", [g]))
     assert ok, err
+
+
+def _gram_input(dev, g, b, p, misalign=False):
+    rng = np.random.default_rng(g * b * p)
+    x = torch.from_numpy(rng.standard_normal((g, b, 8, p)) * 0.1).float()
+    x = x.to(dev)
+    if misalign:  # 4 bytes past a 16-byte boundary: element-wise loads
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        x = buf[1:].view(x.shape).copy_(x)
+    return x
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 8, 512),   # G = 1
+    (3, 7, 512),   # odd B and an odd subset count: a zero partner
+    (2, 5, 300),   # P a multiple of 4, ragged last chunk
+    (1, 3, 517),   # P not a multiple of 4: element-wise loads
+    (1, 1, 20),    # one subset, fewer pixels than a chunk
+])
+@pytest.mark.parametrize("misalign", [False, True])
+def test_gram_big_ragged_shapes(dev, shape, misalign):
+    """gram_big against its plain version and gram_loop within 1e-5 of the
+    sum of |terms|, and the 16-byte and element-wise loads bit for bit."""
+    x = _gram_input(dev, *shape, misalign)
+    assert bool(x.data_ptr() % 16) == misalign
+    got = em.stage_gram_big(x)
+    scale = em.terms_scale("gram_big", [x])
+    for other in (em.gram_reference(x), em.stage_gram_loop(x)):
+        ok, err = em.agreement(got, other, scale)
+        assert ok, f"{shape}: max |diff| {err}"
+    if misalign:
+        assert torch.equal(got, em.stage_gram_big(_gram_input(dev, *shape)))
 
 
 def _product_inputs(dev, g, b, k, m, p, misalign=False):
