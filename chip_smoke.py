@@ -8,15 +8,17 @@ Phases, one informational line each:
   2. build: compile csrc/fused_assemble.cu with nvcc into build/ and turn
      TF32 off for float32 matmuls and cuDNN;
   3. kernel vs plain: the CUDA fused assembly against its plain PyTorch
-     version on the card, over the model x interpolation x channel grid
-     and at the dense-grid problem's level 0/1/2 shapes (4096 subsets),
+     version on the card, bit for bit, over the model x interpolation x
+     channel grid and at the dense-grid problem's level 0/1/2 shapes
+     (4096 subsets; the block path at level 0, the warp path at 1-2),
      with one subset warped out of the image;
   4. pyramid: the pyramid built on the card equals the CPU pyramid;
   5. slice: correlate_frames on the dense-grid problem (4096 21x21
      subsets, AFFINE/BICUBIC, levels 2-1-0, 64 chained frame pairs) on
      the card, checked for finite parameters, the hard-error fraction, the
-     recovered shift (u, v) = (0, 1) and kernel launches; then the first
-     256 subsets for 2 frames through the plain version on the CPU;
+     recovered shift (u, v) = (0, 1) and kernel launches at every level
+     (launches and subsets a launch per level); then the first 256 subsets
+     for 2 frames through the plain version on the CPU;
   6. time: the 64-frame chunk after a warm-up, and one assembly per level
      by the kernel (replayed from a CUDA graph, and called eagerly through
      its wrapper) and by the plain version;
@@ -40,7 +42,8 @@ Phases, one informational line each:
      kernel launches, and its first 256 subsets x 2 pairs against the
      plain version on the CPU.
 Then a JSON line with the kernel records (K1 at each level, K2, the five
-stages): launches on the main path, agreement with the plain version, the
+stages): launches on the main path (K1: its level's, with the mean subsets
+a launch and the threads a subset), agreement with the plain version, the
 kernel's, the plain version's and the library call's times, and the
 kernel's bound, the least time the card could take for the same work
 (bound()); and, last, the JSON line {"ok": true, "device": {...}}.  Any failed phase raises and the script
@@ -69,7 +72,9 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 # and multiply of csrc/fused_assemble.cu's body one (it builds with
 # -fmad=false): warp 10, tap fractions 2, two sets of Catmull-Rom taps 66,
 # tile offsets 4, live / bad 3, the 4 x 4 tap sums 56 + 21, gradients and
-# residual 4, the Jacobian's products 4, the 36 Gram products 72.
+# residual 4, the Jacobian's products 4, the 36 Gram products 72 (their
+# adds included, so the sums across threads are counted whatever the
+# design's reduction).
 K1_OPS_PER_PIXEL = 242
 
 
@@ -118,7 +123,8 @@ def gram_check(got, ref, num_p, what):
 
 def grid_cases(torch, v2, cfgmod, speckle, dev):
     """tests/test_assemble_v2.py's grid: four model/interpolation pairs x
-    C in {1, 3}, five 11x11 subsets on a 96x130 texture."""
+    C in {1, 3}, five 11x11 subsets on a 96x130 texture (the warp path),
+    and again with 23x23 subsets (the block path)."""
     import numpy as np
 
     rng = np.random.default_rng(9)
@@ -126,36 +132,40 @@ def grid_cases(torch, v2, cfgmod, speckle, dev):
     fm, fi = cfgmod.FittingModel, cfgmod.Interpolation
     grid = [(fm.AFFINE, fi.BICUBIC), (fm.UV, fi.BILINEAR),
             (fm.UVQ, fi.BICUBIC), (fm.U, fi.NEAREST)]
-    s, side = 5, 11
-    xy = np.zeros((s, side * side, 2), np.float32)
-    for i in range(s):
-        cx, cy = 20 + 13 * i, 25 + 9 * i
-        gx, gy = np.meshgrid(np.arange(cx - 5, cx + 6),
-                             np.arange(cy - 5, cy + 6), indexing="ij")
-        xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)
-    mask = np.ones((s, side * side), bool)
-    center = xy.mean(axis=1).astype(np.float32)
-    for channels in (1, 3):
-        img = np.stack([img1 * f for f in (1.0, 0.8, 0.6)[:channels]], -1)
-        und_w = img[xy[..., 1].astype(int), xy[..., 0].astype(int)]
-        th, tw = v2.choose_tile(10, 10, 96, 136)
+    s = 5
+    for side in (11, 23):
+        half = side // 2
+        xy = np.zeros((s, side * side, 2), np.float32)
+        for i in range(s):
+            cx, cy = 20 + 13 * i, 25 + 9 * i
+            gx, gy = np.meshgrid(np.arange(cx - half, cx + half + 1),
+                                 np.arange(cy - half, cy + half + 1),
+                                 indexing="ij")
+            xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)
+        mask = np.ones((s, side * side), bool)
+        center = xy.mean(axis=1).astype(np.float32)
+        path = f"{side}x{side}, {v2.subset_threads(side * side)} threads"
+        for channels in (1, 3):
+            img = np.stack([img1 * f for f in (1.0, 0.8, 0.6)[:channels]], -1)
+            und_w = img[xy[..., 1].astype(int), xy[..., 0].astype(int)]
+            th, tw = v2.choose_tile(side - 1, side - 1, 96, 136)
 
-        def t(a):
-            return torch.as_tensor(a, device=dev)
+            def t(a):
+                return torch.as_tensor(a, device=dev)
 
-        xy_t, mask_t, center_t = t(xy), t(mask), t(center)
-        pix = v2.pack_pixels(xy_t, mask_t, t(und_w), center_t)
-        bbox = v2.subset_bbox(xy_t, mask_t)
-        dimg = v2.prepare_image(t(img), th, tw)
-        for model, interp in grid:
-            num_p = cfgmod.NUM_PARAMS[model]
-            params = rng.normal(0, 0.01, (s, num_p)).astype(np.float32)
-            params[:, 0] += 0.7
-            if num_p > 1:
-                params[:, 1] -= 0.4
-            yield (f"{model.name}/{interp.name}/C{channels}", num_p,
-                   (model, interp, th, tw, 96, 130, dimg, pix, center_t,
-                    t(params), bbox))
+            xy_t, mask_t, center_t = t(xy), t(mask), t(center)
+            pix = v2.pack_pixels(xy_t, mask_t, t(und_w), center_t)
+            bbox = v2.subset_bbox(xy_t, mask_t)
+            dimg = v2.prepare_image(t(img), th, tw)
+            for model, interp in grid:
+                num_p = cfgmod.NUM_PARAMS[model]
+                params = rng.normal(0, 0.01, (s, num_p)).astype(np.float32)
+                params[:, 0] += 0.7
+                if num_p > 1:
+                    params[:, 1] -= 0.4
+                yield (f"{model.name}/{interp.name}/C{channels} ({path})",
+                       num_p, (model, interp, th, tw, 96, 130, dimg, pix,
+                               center_t, t(params), bbox))
 
 
 def experiments_phase(torch, dev, smi):
@@ -315,7 +325,7 @@ def sequence_phase(torch, dev, smi, v2):
     for name, scfg, pairs, accumulates in modes:
         meter = SolveMeter()
         torch.cuda.synchronize()
-        v2.LAUNCHES = 0
+        v2.reset_launches()
         t0 = time.perf_counter()
         recs = run_sequence(InMemoryFrames(frames[: pairs + 1]), pts, scfg,
                             centers=centers, meter=meter, device=dev)
@@ -373,15 +383,15 @@ def main() -> int:
 
     from correlation_tpu_torch import config as cfgmod
     from correlation_tpu_torch.domains import SubsetBatch
-    from correlation_tpu_torch.engine import (
-        compute_level_statics,
-        correlate_frames,
-        prepare_levels,
-    )
+    from correlation_tpu_torch.engine import correlate_frames
     from correlation_tpu_torch.ops import _build
     from correlation_tpu_torch.ops import assemble_v2 as v2
     from correlation_tpu_torch.ops.pyramid import build_pyramid
-    from correlation_tpu_torch.problems import dense_grid_problem, speckle
+    from correlation_tpu_torch.problems import (
+        assembly_levels,
+        dense_grid_problem,
+        speckle,
+    )
     from correlation_tpu_torch.utils.profiling import (
         card_name_and_power,
         cuda_time_ms,
@@ -424,22 +434,11 @@ def main() -> int:
     cfg, und, dfm, batch, params0 = dense_grid_problem(NUM_SUBSETS)
     pair = torch.as_tensor(np.stack([und, dfm])[..., None], device=dev)
     pyr = build_pyramid(pair, cfg.pyramid.stop)
-    statics = compute_level_statics(cfg, batch, pyr)
-    gb = batch.to_device(dev)
-    levels = prepare_levels(cfg, [p[0] for p in pyr], [p[1] for p in pyr],
-                            gb.xy, gb.mask, gb.center0, statics)
-    rng = np.random.default_rng(1)
-    level_args = {}
-    for lvl in cfg.pyramid.levels_coarse_to_fine():
-        st, lv = statics[lvl], levels[lvl]
-        p = np.zeros((NUM_SUBSETS, 6), np.float32)
-        p[:, :2] = rng.normal(0, 0.3, (NUM_SUBSETS, 2))
-        p[:, 1] += 1.0 / (1 << lvl)
-        p[:, 2:] = rng.normal(0, 0.003, (NUM_SUBSETS, 4))
-        p[7, 0] = 4000.0  # one subset warped out of the image
-        args = (cfg.model, cfg.interpolation, st.tile_h, st.tile_w, st.img_h,
-                st.img_w, lv.def_img, lv.pix, lv.center,
-                torch.as_tensor(p, device=dev), lv.bbox)
+    # Subset 7 is warped out of the image.
+    level_args = assembly_levels(cfg, batch, pyr, dev)
+    for lvl, args in level_args.items():
+        tile_h, tile_w = args[2:4]
+        p_len = args[7].shape[2]
         got = v2.fused_assemble(*args).cpu().numpy()
         ref = v2.fused_assemble_reference(*args).cpu().numpy()
         check(got[7, 7, 7] > 0 and ref[7, 7, 7] > 0,
@@ -447,9 +446,10 @@ def main() -> int:
         err, same = gram_check(got, ref, 6, f"L{lvl}")
         max_err = max(max_err, err)
         identical += same
-        names.append(f"L{lvl} {NUM_SUBSETS}x{lv.pix.shape[2]}px "
-                     f"tile {st.tile_h}x{st.tile_w}")
-        level_args[lvl] = args
+        names.append(f"L{lvl} {NUM_SUBSETS}x{p_len}px tile {tile_h}x{tile_w} "
+                     f"({v2.subset_threads(p_len)} threads a subset)")
+    check(identical == len(names),
+          f"kernel and plain differ in {len(names) - identical} cases")
     print(f"kernel vs plain: {len(names)} cases agree ({', '.join(names)}); "
           f"max |kernel - plain| {max_err:.4e}; bit-identical in {identical} "
           f"of {len(names)}")
@@ -465,15 +465,20 @@ def main() -> int:
     stack = np.stack([und] + [dfm] * FRAMES)[..., None].astype(np.uint8)
     stack_dev = torch.from_numpy(stack).to(dev)
     torch.cuda.synchronize()
-    v2.LAUNCHES = 0
+    v2.reset_launches()
     t0 = time.perf_counter()
     out = correlate_frames(cfg, stack_dev, batch, params0, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = v2.LAUNCHES
+    # [launches, subsets assembled] of each level's shape
+    by_level = {lvl: list(v2.LAUNCHES_BY_SHAPE.get(
+        (a[7].shape[2], a[2], a[3]), [0, 0])) for lvl, a in level_args.items()}
     params = out["params"].cpu().numpy()
     errors = out["error"].cpu().numpy()
     check(launches > 0, "the main path launched no kernel")
+    check(all(k > 0 for k, _ in by_level.values()),
+          f"a level's kernel was never launched: {by_level}")
     check(np.isfinite(params).all(), "non-finite parameters")
     hard = float(np.mean((errors != 0) & (errors != 3)))
     check(hard < 0.005, f"hard-error fraction {hard}")
@@ -496,7 +501,10 @@ def main() -> int:
     check(mismatch <= 0.01 * g["error"].size,
           f"{mismatch} iteration/error mismatches card vs CPU")
     print(f"slice: correlate_frames {NUM_SUBSETS} subsets x {FRAMES} frames "
-          f"in {first_s:.3f} s (first run), {launches} kernel launches; "
+          f"in {first_s:.3f} s (first run), {launches} kernel launches ("
+          + ", ".join(f"L{lvl} {k}, {m / k:.1f} subsets a launch"
+                      for lvl, (k, m) in sorted(by_level.items()))
+          + "); "
           f"hard-error fraction {hard}; median (u, v) = ({med_u:.5f}, "
           f"{med_v:.5f}); card vs CPU plain ({CPU_SUBSETS} subsets x 2 "
           f"frames): max |dp| {p_diff:.3e}, {mismatch} iteration/error "
@@ -530,14 +538,17 @@ def main() -> int:
         n, p_len = pix.shape[0], pix.shape[2]
         moved = (nbytes(img, center, params, bbox) + n * rows * p_len * 4
                  + n * 64 * 4)
-        ops = n * (p_len * K1_OPS_PER_PIXEL + 36 * (v2.KERNEL_THREADS - 1))
+        ops = n * p_len * K1_OPS_PER_PIXEL
         bound_ms, bound_by = bound(moved, ops, "fp32")
+        k_launches, k_subsets = by_level[lvl]
         kernels.append({
             "name": f"fused_assemble_L{lvl}",
             "route": "cuda",
             "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
             "replaces": "correlation_tpu/ops/assemble_v2.py:964",
-            "launches": launches,  # all levels' launches of the one kernel
+            "launches": k_launches,  # this level's, on the main path
+            "subsets_per_launch": k_subsets / k_launches,
+            "threads_per_subset": v2.subset_threads(p_len),
             "max_abs_err": max_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,

@@ -9,36 +9,85 @@
 // H, V = und - w and `bad`, and write the 8x8 Gram of G = [H | V | bad]
 // (A at [i][j], b at [i][NP], chi at [NP][NP], bad count at [NP+1][NP+1]).
 //
-// Design of this first version: one block of 128 threads per subset.  The
-// block reads its subset id from the index list of still-active subsets,
-// computes the tile origin from the warped bounding-box corners (as
-// compute_origins does), stages the tile_h x tile_w x C tile in shared
-// memory, and loops over pixels; each thread keeps the upper triangle of
-// the Gram products in registers.  The block reduces them with warp
-// shuffles and then shared memory in a fixed order, without atomics, so
-// results repeat bit for bit from run to run (LM iteration counts depend
+// Two paths, chosen by the caller from the padded pixel count alone
+// (assemble_v2.subset_threads, which the plain version follows too, since
+// the path fixes the order of the Gram sums):
+//
+//   warp path (threads == kWarpLanes, 16): a group of 16 lanes per
+//       subset, two subsets a warp, kWarpSubsets (4) warps a block, each
+//       subset with its own slice of shared memory and no block barrier.
+//       For small subsets (pyramid levels 1-2: 121 and 36 live pixels),
+//       where a 128-thread block left most threads idle; half a warp a
+//       subset keeps all 4096 bench subsets in one wave.
+//   block path (threads == kBlockThreads, 64): a block per subset, for
+//       large subsets (level 0: 441 live pixels).
+//
+// The counts are the design sweep's choice (experiments/design_sweep.py;
+// the readings of the other counts are in PERF.md).
+//
+// Both paths stage a subset the same way.  The subset's pixel rows (x, y,
+// mask, x - cx, y - cy, und) are one contiguous span of pix: its cp.async
+// copies (16 bytes where aligned) are issued first, before the tile origin
+// is known.  Every warp then computes the origin itself (lanes warp the 4
+// bounding-box corners, a shuffle takes the minimum), so no thread waits
+// on another's prologue, and issues 4-byte cp.async copies of the tile,
+// column by column.  One wait and one barrier later both trips have
+// landed.  The tile's rows lie an odd pitch apart in shared memory: a
+// subset's pixels run down its columns, so neighbouring lanes read
+// neighbouring rows, which at L0's 32-float rows all fell in one bank.
+// Each thread keeps the upper triangle of the Gram products of its
+// pixels t, t + threads, ... (channels inner) in registers.  A group
+// folds its lanes with a reduce-scatter: at each butterfly step a lane
+// keeps half of its sums and trades the other half with its partner, 37
+// shuffles for the 36 AFFINE products over 32 lanes where a shuffle tree
+// per product takes 180.  Each product is still summed over the lanes in
+// the butterfly's tree, the tree of a __shfl_down reduction (a + b == b +
+// a in IEEE arithmetic), and the block path adds its warps' sums in warp
+// order.  Fixed order, no atomics: results repeat bit for bit from run to
+// run, and the plain version reproduces them (LM iteration counts depend
 // on delta-chi against the precision threshold).
 //
-// What bounds it: at pyramid level 0 a subset has 441 pixels of ~150 flops
-// each against a 4 KB tile (32x32 floats), a few hundred bytes of pixel
-// data per pixel row and 256 bytes out.  That is far too little work per
-// block to be HBM-bound: the kernel is latency- and occupancy-bound (tile
-// staging, the shuffle reduction, one small block per subset).  Packing
-// several level-1/2 subsets into one block, and staging tiles with
-// cp.async or TMA, are left for later work.
+// What bounds it: at the bench shapes a subset's bytes (a 2.3-4 KB tile,
+// 1-10.7 KB of pixel rows, 256 bytes out) take 0.0016-0.0148 ms an
+// assembly of 4096 subsets from HBM, and its 242 counted operations a
+// pixel 0.0006-0.0066 ms at the fp32 peak: bytes bound it.  On an H100
+// (80GB HBM3, 700 W) the kernel reaches about 20-42% of that bound
+// (PERF.md).  Instruction issue does not explain the gap: the per-pixel
+// loop is about 283 SASS instructions, which on 132 SMs of 4 schedulers
+// near 1.98 GHz issue in about 0.0155 / 0.0044 / 0.0017 ms at levels 0 /
+// 1 / 2, against 0.034 / 0.012 / 0.008 ms measured.  What takes the rest
+// is not measured (no ncu).  Probably it is each subset's chain of memory
+// trips (idx, then params, then tile and rows), with few blocks an SM to
+// hide it: 10 on the block path and 5 on the warp path, by registers.
+//
+// Not on the tensor cores: the Gram is 72 of the 242 operations a pixel,
+// and no CPU order reproduces a tensor core's internal accumulation, so a
+// tensor-core Gram could not equal the plain version bit for bit.
 //
 // Built with -fmad=false so each pixel's arithmetic rounds exactly as the
-// plain PyTorch version's separate tensor operations do; only the order
-// of the Gram sums differs.
+// plain PyTorch version's separate tensor operations do.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 #include <stdio.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+// The threads a subset on each path; assemble_v2.py's BLOCK_THREADS and
+// WARP_LANES must equal them (the plain version sums in their order).
+constexpr int kBlockThreads = 64;
+constexpr int kWarpLanes = 16;
+constexpr int kWarpSubsets = 4;  // warps a block on the warp path
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 227 * 1024;
+// The block path writes the 64 Gram entries one a thread.
+static_assert(kBlockThreads % 32 == 0 && kBlockThreads >= 64,
+              "the block path needs whole warps and at least 64 threads");
+static_assert(kWarpLanes == 32 || kWarpLanes == 16,
+              "a subset takes a warp or half a warp on the warp path");
 
 __host__ __device__ constexpr int num_params(int model) {
   return model == 0 ? 1 : model == 1 ? 2 : model == 2 ? 3 : 6;
@@ -76,88 +125,151 @@ __device__ __forceinline__ void cubic_taps(float t, float* k, float* dk) {
   dk[3] = (1.5f * t - 1.0f) * t;
 }
 
-template <int MODEL, int INTERP, int C>
-__global__ void __launch_bounds__(kThreads) fused_assemble_kernel(
-    const float* __restrict__ img, int hp, int wp, int img_h, int img_w,
-    const float* __restrict__ pix, int p_len,
+// Row pitch of a tile in shared memory: tile_w * C floats made odd.  A
+// subset's pixels run down its columns (y fastest), so neighbouring lanes
+// read neighbouring tile rows; at an even pitch they share banks (at a
+// 32-float pitch, every lane of a column hits one bank).  An odd pitch
+// puts 32 consecutive rows in 32 banks.
+__host__ __device__ inline int tile_pitch(int tile_w, int c) {
+  return (tile_w * c) | 1;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Per-subset parameters and tile origin, held by every thread.
+struct Subset {
+  int s;       // subset index
+  int y0, x0;  // tile origin
+  float p[6];
+};
+
+// The subset at list position `slot`, its parameters and tile origin.
+// Every warp computes the origin itself: lane c & 3 warps corner c, and
+// two butterfly steps take the minimum (fminf is exact, so the order is
+// free).  An index outside [0, S) is a caller's bug: stop the kernel, as
+// a device-side assert does, rather than read another subset's rows.
+template <int MODEL, int INTERP>
+__device__ __forceinline__ Subset load_subset(
+    int slot, const int* __restrict__ idx, int num_subsets,
     const float* __restrict__ center, const float* __restrict__ params,
-    const float* __restrict__ bbox, const int* __restrict__ idx,
-    int num_subsets, int tile_h, int tile_w, float* __restrict__ out) {
+    const float* __restrict__ bbox, int hp, int wp, int tile_h, int tile_w,
+    int t) {
   constexpr int NP = num_params(MODEL);
-  constexpr int R = NP + 2;  // G rows: H, V, bad
-  constexpr int NPROD = R * (R + 1) / 2;
-  constexpr int TAPS = INTERP == 2 ? 4 : 2;
   constexpr int HALO = INTERP == 2 ? 1 : 0;
-
-  extern __shared__ float tile[];  // [tile_h][tile_w][C]
-  __shared__ int s_org[2];
-  __shared__ float s_p[6];
-  __shared__ float s_red[kWarps][NPROD];
-  __shared__ float s_sum[NPROD];
-
-  const int b = blockIdx.x;
-  const int s = idx ? idx[b] : b;
-  const int tid = threadIdx.x;
-  // An index outside [0, S) is a caller's bug: stop the kernel, as a
-  // device-side assert does, rather than read another subset's rows.
-  if ((unsigned)s >= (unsigned)num_subsets) {
-    if (tid == 0)
-      printf("fused_assemble: subset index %d outside [0, %d)\n", s,
+  Subset sub;
+  sub.s = idx ? idx[slot] : slot;
+  if ((unsigned)sub.s >= (unsigned)num_subsets) {
+    if (t == 0)
+      printf("fused_assemble: subset index %d outside [0, %d)\n", sub.s,
              num_subsets);
     __trap();
   }
-
-  if (tid == 0) {
-    float p[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < NP; ++k) p[k] = params[(size_t)s * NP + k];
-    const float cx = center[2 * s], cy = center[2 * s + 1];
-    float mnx = INFINITY, mny = INFINITY;
-    bool finite = true;
-    for (int c = 0; c < 4; ++c) {
-      const float bx = bbox[(size_t)s * 8 + 2 * c];
-      const float by = bbox[(size_t)s * 8 + 2 * c + 1];
-      float xd, yd;
-      warp<MODEL>(p, bx, by, bx - cx, by - cy, xd, yd);
-      finite = finite && isfinite(xd) && isfinite(yd);
-      mnx = fminf(mnx, xd);
-      mny = fminf(mny, yd);
-    }
-    const float ox = fminf(fmaxf(floorf(mnx) - (HALO + 1), 0.f),
-                           (float)max(wp - tile_w, 0));
-    const float oy = fminf(fmaxf(floorf(mny) - (HALO + 1), 0.f),
-                           (float)max(hp - tile_h, 0));
-    s_org[0] = finite ? (int)oy : 0;
-    s_org[1] = finite ? (int)ox : 0;
-    for (int k = 0; k < 6; ++k) s_p[k] = p[k];
-  }
-  __syncthreads();
-  const int y0 = s_org[0], x0 = s_org[1];
-
-  // Stage the tile; zero outside the padded image (the clipped origin
-  // keeps the tile inside, the guard only protects the reads).
-  const int row_len = tile_w * C;
-  for (int i = tid; i < tile_h * row_len; i += kThreads) {
-    const int r = i / row_len;
-    const int rem = i - r * row_len;
-    const int gy = y0 + r, gx = x0 + rem / C;
-    tile[i] = (gy < hp && gx < wp)
-                  ? img[((size_t)gy * wp + x0) * C + rem]
-                  : 0.f;
-  }
-  float p[6];
-  for (int k = 0; k < 6; ++k) p[k] = s_p[k];
-  __syncthreads();
-
-  float acc[NPROD];
+  const int s = sub.s;
 #pragma unroll
-  for (int n = 0; n < NPROD; ++n) acc[n] = 0.f;
+  for (int k = 0; k < 6; ++k)
+    sub.p[k] = k < NP ? params[(size_t)s * NP + k] : 0.f;
+  const int c = t & 3;
+  const float cx = center[2 * s], cy = center[2 * s + 1];
+  const float bx = bbox[(size_t)s * 8 + 2 * c];
+  const float by = bbox[(size_t)s * 8 + 2 * c + 1];
+  float mnx, mny;
+  warp<MODEL>(sub.p, bx, by, bx - cx, by - cy, mnx, mny);
+  int finite = isfinite(mnx) && isfinite(mny);
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mnx = fminf(mnx, __shfl_xor_sync(kFull, mnx, off));
+    mny = fminf(mny, __shfl_xor_sync(kFull, mny, off));
+    finite &= __shfl_xor_sync(kFull, finite, off);
+  }
+  const float ox = fminf(fmaxf(floorf(mnx) - (HALO + 1), 0.f),
+                         (float)max(wp - tile_w, 0));
+  const float oy = fminf(fmaxf(floorf(mny) - (HALO + 1), 0.f),
+                         (float)max(hp - tile_h, 0));
+  sub.y0 = finite ? (int)oy : 0;
+  sub.x0 = finite ? (int)ox : 0;
+  return sub;
+}
 
-  const float* px = pix + (size_t)s * 8 * p_len;
-  for (int q = tid; q < p_len; q += kThreads) {
-    const float x = px[q], y = px[p_len + q], m = px[2 * p_len + q];
-    const float dxc = px[3 * p_len + q], dyc = px[4 * p_len + q];
+// Issue the copies of the subset's pixel rows (rows 0 .. 5 + C of its
+// [8, P] slab, one contiguous span) into `rows`.  16-byte copies when
+// the span and both ends are 16-byte aligned (P % 4 == 0, pix aligned).
+template <int C>
+__device__ __forceinline__ void stage_rows(float* rows,
+                                           const float* __restrict__ px,
+                                           int p_len, bool vec, int t,
+                                           int threads) {
+  const int n = (5 + C) * p_len;
+  if (vec) {
+    for (int i = 4 * t; i < n; i += 4 * threads) cp_async16(rows + i, px + i);
+  } else {
+    for (int i = t; i < n; i += threads) cp_async4(rows + i, px + i);
+  }
+}
+
+// Stage the tile_h x tile_w x C tile at (y0, x0) into `tile`, rows
+// tile_pitch apart, by 4-byte cp.async copies.  The threads split the
+// row's columns, and its rows too when there are more threads than
+// columns; each thread then walks down its column by pointer increments,
+// a few instructions a copy.  The origin is clipped to the padded image
+// and the launcher checks hp >= tile_h, wp >= tile_w, so every read is
+// inside it.
+template <int C>
+__device__ __forceinline__ void stage_tile(float* tile,
+                                           const float* __restrict__ img,
+                                           int wp, int y0, int x0,
+                                           int tile_h, int tile_w, int t,
+                                           int threads) {
+  const int row_len = tile_w * C, pitch = tile_pitch(tile_w, C);
+  const int groups = max(threads / row_len, 1);  // threads down a column
+  const float* src = img + ((size_t)y0 * wp + x0) * C;
+  const size_t src_step = (size_t)wp * C * groups;
+  const int dst_step = pitch * groups;
+  for (int i = t; i < groups * row_len; i += threads) {
+    const int g = i / row_len, col = i - g * row_len;
+    const float* s = src + (size_t)g * wp * C + col;
+    float* d = tile + g * pitch + col;
+    for (int r = g; r < tile_h; r += groups, s += src_step, d += dst_step)
+      cp_async4(d, s);
+  }
+}
+
+// One thread's Gram partial sums over pixels t, t + threads, ... of the
+// subset, channels inner.  `rows` holds the pixel rows at stride p_len
+// (in shared memory, or the subset's slab of pix).
+template <int MODEL, int INTERP, int C, typename RowPtr>
+__device__ __forceinline__ void accumulate(
+    float* acc, const Subset& sub, const float* tile, RowPtr rows,
+    int p_len, int img_h, int img_w, int tile_h, int tile_w, int t,
+    int threads) {
+  constexpr int NP = num_params(MODEL);
+  constexpr int R = NP + 2;  // G rows: H, V, bad
+  constexpr int TAPS = INTERP == 2 ? 4 : 2;
+  constexpr int HALO = INTERP == 2 ? 1 : 0;
+  const int pitch = tile_pitch(tile_w, C);
+  for (int q = t; q < p_len; q += threads) {
+    const float x = rows[q], y = rows[p_len + q], m = rows[2 * p_len + q];
+    const float dxc = rows[3 * p_len + q], dyc = rows[4 * p_len + q];
     float xd, yd;
-    warp<MODEL>(p, x, y, dxc, dyc, xd, yd);
+    warp<MODEL>(sub.p, x, y, dxc, dyc, xd, yd);
     float ax = floorf(xd), ay = floorf(yd);
     const float tx = xd - ax, ty = yd - ay;
     float kx[TAPS], dkx[TAPS], ky[TAPS], dky[TAPS];
@@ -188,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) fused_assemble_kernel(
       dky[0] = -1.0f;
       dky[1] = 1.0f;
     }
-    const float rxf = ax - HALO - x0, ryf = ay - HALO - y0;
+    const float rxf = ax - HALO - sub.x0, ryf = ay - HALO - sub.y0;
     const bool in_tile = rxf >= 0.f && rxf <= (float)(tile_w - TAPS) &&
                          ryf >= 0.f && ryf <= (float)(tile_h - TAPS);
     const float okf = (valid && in_tile) ? 1.0f : 0.0f;
@@ -203,17 +315,17 @@ __global__ void __launch_bounds__(kThreads) fused_assemble_kernel(
       float tmp[TAPS], tmp_d[TAPS];
 #pragma unroll
       for (int k = 0; k < TAPS; ++k) {
-        const float* col = tile + (ry * tile_w + rx + k) * C + c;
+        const float* col = tile + ry * pitch + (rx + k) * C + c;
         float v = col[0];
-        float t = ky[0] * v, td = dky[0] * v;
+        float s = ky[0] * v, sd = dky[0] * v;
 #pragma unroll
         for (int j = 1; j < TAPS; ++j) {
-          v = col[j * row_len];
-          t = t + ky[j] * v;
-          td = td + dky[j] * v;
+          v = col[j * pitch];
+          s = s + ky[j] * v;
+          sd = sd + dky[j] * v;
         }
-        tmp[k] = t;
-        tmp_d[k] = td;
+        tmp[k] = s;
+        tmp_d[k] = sd;
       }
       float w = kx[0] * tmp[0], wdx = dkx[0] * tmp[0], wdy = kx[0] * tmp_d[0];
 #pragma unroll
@@ -223,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) fused_assemble_kernel(
         wdy = wdy + kx[k] * tmp_d[k];
       }
       const float dwdx = wdx * live, dwdy = wdy * live;
-      const float und = px[(5 + c) * p_len + q];
+      const float und = rows[(5 + c) * p_len + q];
       float g[R];
       g[0] = dwdx;
       if constexpr (NP == 2) g[1] = dwdy;
@@ -248,85 +360,280 @@ __global__ void __launch_bounds__(kThreads) fused_assemble_kernel(
       }
     }
   }
+}
 
-  // Fixed-order block reduction: shuffle tree inside each warp, then the
-  // warps' partial sums in warp order.
-  const int lane = tid & 31, warp_id = tid >> 5;
+// Reduce-scatter of v[0 .. N) over the lanes of a group, at butterfly
+// offset OFF and below (OFF = lanes / 2 first).  Lanes with bit OFF set
+// keep the upper half of the slots, the others the lower half, and each
+// adds its partner's copy of the slots it keeps (a dummy 0 slot pads an
+// odd N).  On return v[0 .. F) of a lane are the group's sums of
+// products first + 0 .. F - 1; those at or past `lim` are dummies.
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane, int& first,
+                                               int& lim) {
+  constexpr int H = (N + 1) / 2;
+  const bool up = lane & OFF;
 #pragma unroll
-  for (int n = 0; n < NPROD; ++n) {
-    float v = acc[n];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) s_red[warp_id][n] = v;
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = i + H < N ? v[i + H] : 0.f;
+    const float keep = up ? hi : lo;
+    v[i] = keep + __shfl_xor_sync(kFull, up ? lo : hi, OFF);
   }
+  if (up)
+    first += H;
+  else
+    lim = min(lim, first + H);
+  if constexpr (OFF > 1) reduce_scatter<H, OFF / 2>(v, lane, first, lim);
+}
+
+// Final slots a lane holds after reduce_scatter<N, OFF>.
+__host__ __device__ constexpr int scatter_slots(int n, int off) {
+  return off == 0 ? n : scatter_slots((n + 1) / 2, off / 2);
+}
+
+// Reduce acc over a group of LANES lanes and store each product's sum at
+// red[product].
+template <int NPROD, int LANES = 32>
+__device__ __forceinline__ void group_sums(float* acc, int lane, float* red) {
+  int first = 0, lim = NPROD;
+  reduce_scatter<NPROD, LANES / 2>(acc, lane, first, lim);
+#pragma unroll
+  for (int j = 0; j < scatter_slots(NPROD, LANES / 2); ++j)
+    if (first + j < lim) red[first + j] = acc[j];
+}
+
+// out[e] of the 8x8 Gram from the upper-triangle sums `sum(k)`.
+template <int R, typename Sum>
+__device__ __forceinline__ float gram_entry(int e, Sum sum) {
+  const int i = e >> 3, j = e & 7;
+  if (i >= R || j >= R) return 0.f;
+  const int lo = i < j ? i : j, hi = i < j ? j : i;
+  // index of (lo, hi) in the row-major upper triangle
+  return sum(lo * R - lo * (lo - 1) / 2 + (hi - lo));
+}
+
+// Shared memory of one subset: its pixel rows (when staged), then its
+// tile, each region a multiple of 4 floats so 16-byte copies stay aligned.
+__host__ __device__ inline int rows_floats(int p_len, int c, bool staged) {
+  return staged ? ((5 + c) * p_len + 3) / 4 * 4 : 0;
+}
+
+__host__ __device__ inline int subset_floats(int p_len, int c, int tile_h,
+                                             int tile_w, bool staged) {
+  return rows_floats(p_len, c, staged) +
+         (tile_h * tile_pitch(tile_w, c) + 3) / 4 * 4;
+}
+
+struct Args {
+  const float* img;
+  int hp, wp, img_h, img_w;
+  const float* pix;
+  int p_len;
+  const float* center;
+  const float* params;
+  const float* bbox;
+  const int* idx;
+  int n, num_subsets, tile_h, tile_w;
+  bool stage_rows, vec;
+  int groups;  // warp path: lane groups of a warp that hold a subset
+  float* out;
+};
+
+// Warp path: kWarpLanes lanes per subset.  Lane group g of warp w of
+// block b assembles list position (b * warps + w) * a.groups + g (warps =
+// blockDim.x / 32; a.groups <= 32 / kWarpLanes).  A group past the list,
+// or beyond a.groups, works on the last position and writes nothing: its
+// lanes still take part in the warp's shuffles.
+template <int MODEL, int INTERP, int C>
+__global__ void __launch_bounds__(32 * kWarpSubsets)
+    fused_assemble_warp(const Args a) {
+  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
+  constexpr int R = num_params(MODEL) + 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_sum[kWarpSubsets * 32 / kWarpLanes][NPROD];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane / kWarpLanes, l = lane % kWarpLanes;
+  const int region = w * a.groups + g;
+  const int first = (blockIdx.x * (blockDim.x >> 5) + w) * a.groups;
+  if (first >= a.n) return;  // no block barrier below
+  const bool active = g < a.groups && first + g < a.n;
+  const int slot = active ? first + g : a.n - 1;
+  float* rows =
+      smem + (size_t)(active ? region : 0) *
+                 subset_floats(a.p_len, C, a.tile_h, a.tile_w, a.stage_rows);
+  float* tile = rows + rows_floats(a.p_len, C, a.stage_rows);
+
+  // The rows need only the index: issue them before the origin's loads.
+  const int s = a.idx ? a.idx[slot] : slot;
+  if (active && a.stage_rows && (unsigned)s < (unsigned)a.num_subsets)
+    stage_rows<C>(rows, a.pix + (size_t)s * 8 * a.p_len, a.p_len, a.vec, l,
+                  kWarpLanes);
+  const Subset sub = load_subset<MODEL, INTERP>(
+      slot, a.idx, a.num_subsets, a.center, a.params, a.bbox, a.hp, a.wp,
+      a.tile_h, a.tile_w, l);
+  if (active)
+    stage_tile<C>(tile, a.img, a.wp, sub.y0, sub.x0, a.tile_h, a.tile_w, l,
+                  kWarpLanes);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  float acc[NPROD];
+#pragma unroll
+  for (int k = 0; k < NPROD; ++k) acc[k] = 0.f;
+  const int p_len = active ? a.p_len : 0;
+  if (a.stage_rows)
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, (const float*)rows, p_len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, l,
+                                 kWarpLanes);
+  else
+    accumulate<MODEL, INTERP, C>(acc, sub, tile,
+                                 a.pix + (size_t)sub.s * 8 * a.p_len, p_len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, l,
+                                 kWarpLanes);
+  float* sums = s_sum[w * (32 / kWarpLanes) + g];
+  group_sums<NPROD, kWarpLanes>(acc, l, sums);
+  __syncwarp();
+  if (!active) return;
+  float* o = a.out + (size_t)slot * 64;
+#pragma unroll
+  for (int e = l; e < 64; e += kWarpLanes)
+    o[e] = gram_entry<R>(e, [&](int k) { return sums[k]; });
+}
+
+// Block path: one block per list position.
+template <int MODEL, int INTERP, int C>
+__global__ void __launch_bounds__(kBlockThreads)
+    fused_assemble_block(const Args a) {
+  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
+  constexpr int kWarps = kBlockThreads / 32;
+  constexpr int R = num_params(MODEL) + 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_red[kWarps][NPROD];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int slot = blockIdx.x;
+  float* tile = smem + rows_floats(a.p_len, C, a.stage_rows);
+
+  // The rows need only the index: issue them before the origin's loads.
+  const int s = a.idx ? a.idx[slot] : slot;
+  if (a.stage_rows && (unsigned)s < (unsigned)a.num_subsets)
+    stage_rows<C>(smem, a.pix + (size_t)s * 8 * a.p_len, a.p_len, a.vec, tid,
+                  kBlockThreads);
+  const Subset sub = load_subset<MODEL, INTERP>(
+      slot, a.idx, a.num_subsets, a.center, a.params, a.bbox, a.hp, a.wp,
+      a.tile_h, a.tile_w, tid);
+  stage_tile<C>(tile, a.img, a.wp, sub.y0, sub.x0, a.tile_h, a.tile_w, tid,
+                kBlockThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  if (tid < NPROD) {
-    float v = s_red[0][tid];
-    for (int w = 1; w < kWarps; ++w) v += s_red[w][tid];
-    s_sum[tid] = v;
-  }
+
+  float acc[NPROD];
+#pragma unroll
+  for (int k = 0; k < NPROD; ++k) acc[k] = 0.f;
+  if (a.stage_rows)
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, (const float*)smem, a.p_len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, tid,
+                                 kBlockThreads);
+  else
+    accumulate<MODEL, INTERP, C>(acc, sub, tile,
+                                 a.pix + (size_t)sub.s * 8 * a.p_len, a.p_len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, tid,
+                                 kBlockThreads);
+  group_sums<NPROD>(acc, lane, s_red[w]);
   __syncthreads();
   if (tid < 64) {
-    const int i = tid >> 3, j = tid & 7;
-    float v = 0.f;
-    if (i < R && j < R) {
-      const int lo = i < j ? i : j, hi = i < j ? j : i;
-      // index of (lo, hi) in the row-major upper triangle
-      v = s_sum[lo * R - lo * (lo - 1) / 2 + (hi - lo)];
-    }
-    out[(size_t)b * 64 + tid] = v;
+    // The warps' sums in warp order.
+    a.out[(size_t)slot * 64 + tid] = gram_entry<R>(tid, [&](int k) {
+      float v = s_red[0][k];
+#pragma unroll
+      for (int u = 1; u < kWarps; ++u) v += s_red[u][k];
+      return v;
+    });
   }
 }
 
+// Subsets of `per` bytes that fit in `budget` bytes, at most `most`.
+inline int fitting(size_t budget, size_t per, int most) {
+  return (int)std::min((size_t)most, budget / per);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <int MODEL, int INTERP, int C>
-cudaError_t launch(const float* img, int hp, int wp, int img_h, int img_w,
-                   const float* pix, int p_len, const float* center,
-                   const float* params, const float* bbox, const int* idx,
-                   int n, int num_subsets, int tile_h, int tile_w,
-                   float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)tile_h * tile_w * C * sizeof(float);
-  auto kernel = fused_assemble_kernel<MODEL, INTERP, C>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+cudaError_t launch_warp(Args a, size_t bare, size_t full,
+                        cudaStream_t stream) {
+  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
+  // Rows staged where a subset with them fits; fewer subsets a block (and
+  // a warp) where all do not fit.  Neither changes the sums.
+  const size_t budget =
+      kMaxSmem - sizeof(float) * kWarpSubsets * (32 / kWarpLanes) * NPROD;
+  a.stage_rows = full <= budget;
+  const size_t per = a.stage_rows ? full : bare;
+  a.groups = 32 / kWarpLanes;
+  int warps = fitting(budget, per * a.groups, kWarpSubsets);
+  if (warps == 0) {
+    a.groups = 1;
+    warps = fitting(budget, per, kWarpSubsets);
   }
-  kernel<<<n, kThreads, smem, stream>>>(img, hp, wp, img_h, img_w, pix,
-                                        p_len, center, params, bbox, idx,
-                                        num_subsets, tile_h, tile_w, out);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = per * a.groups * warps;
+  auto kernel = fused_assemble_warp<MODEL, INTERP, C>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int per_block = a.groups * warps;
+  kernel<<<(a.n + per_block - 1) / per_block, 32 * warps, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MODEL, int INTERP, int C>
+cudaError_t launch(int threads, Args a, cudaStream_t stream) {
+  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
+  const size_t bare = (size_t)subset_floats(a.p_len, C, a.tile_h, a.tile_w,
+                                            false) * 4;
+  const size_t full = (size_t)subset_floats(a.p_len, C, a.tile_h, a.tile_w,
+                                            true) * 4;
+  a.vec = a.p_len % 4 == 0 && (uintptr_t)a.pix % 16 == 0;
+  if (threads == kWarpLanes)
+    return launch_warp<MODEL, INTERP, C>(a, bare, full, stream);
+  if (threads != kBlockThreads) return cudaErrorInvalidValue;
+  // Rows staged where they fit beside the tile, else read from memory.
+  const size_t budget =
+      kMaxSmem - sizeof(float) * (kBlockThreads / 32) * NPROD;
+  a.stage_rows = full <= budget;
+  const size_t smem = a.stage_rows ? full : bare;
+  if (smem > budget) return cudaErrorInvalidValue;
+  auto kernel = fused_assemble_block<MODEL, INTERP, C>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<a.n, kBlockThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int MODEL, int INTERP>
-cudaError_t dispatch_c(int c, const float* img, int hp, int wp, int img_h,
-                       int img_w, const float* pix, int p_len,
-                       const float* center, const float* params,
-                       const float* bbox, const int* idx, int n,
-                       int num_subsets, int tile_h, int tile_w, float* out,
+cudaError_t dispatch_c(int c, int threads, const Args& a,
                        cudaStream_t stream) {
-#define FA_ARGS                                                             \
-  img, hp, wp, img_h, img_w, pix, p_len, center, params, bbox, idx, n,    \
-      num_subsets, tile_h, tile_w, out, stream
   switch (c) {
-    case 1: return launch<MODEL, INTERP, 1>(FA_ARGS);
-    case 2: return launch<MODEL, INTERP, 2>(FA_ARGS);
-    case 3: return launch<MODEL, INTERP, 3>(FA_ARGS);
+    case 1: return launch<MODEL, INTERP, 1>(threads, a, stream);
+    case 2: return launch<MODEL, INTERP, 2>(threads, a, stream);
+    case 3: return launch<MODEL, INTERP, 3>(threads, a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int MODEL>
-cudaError_t dispatch_i(int interp, int c, const float* img, int hp, int wp,
-                       int img_h, int img_w, const float* pix, int p_len,
-                       const float* center, const float* params,
-                       const float* bbox, const int* idx, int n,
-                       int num_subsets, int tile_h, int tile_w, float* out,
+cudaError_t dispatch_i(int interp, int c, int threads, const Args& a,
                        cudaStream_t stream) {
   switch (interp) {
-    case 0: return dispatch_c<MODEL, 0>(c, FA_ARGS);
-    case 1: return dispatch_c<MODEL, 1>(c, FA_ARGS);
-    case 2: return dispatch_c<MODEL, 2>(c, FA_ARGS);
+    case 0: return dispatch_c<MODEL, 0>(c, threads, a, stream);
+    case 1: return dispatch_c<MODEL, 1>(c, threads, a, stream);
+    case 2: return dispatch_c<MODEL, 2>(c, threads, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -335,21 +642,28 @@ cudaError_t dispatch_i(int interp, int c, const float* img, int hp, int wp,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
-int fused_assemble_launch(int model, int interp, int c, const float* img,
-                          int hp, int wp, int img_h, int img_w,
-                          const float* pix, int p_len, const float* center,
-                          const float* params, const float* bbox,
-                          const int* idx, int n, int num_subsets,
-                          int tile_h, int tile_w, float* out,
-                          void* stream_ptr) {
+// Returns the cudaError_t of the launch (0 on success).  `threads` picks
+// the path: kWarpLanes for the warp path, kBlockThreads for the block
+// path (anything else is cudaErrorInvalidValue).
+int fused_assemble_launch(int model, int interp, int c, int threads,
+                          const float* img, int hp, int wp, int img_h,
+                          int img_w, const float* pix, int p_len,
+                          const float* center, const float* params,
+                          const float* bbox, const int* idx, int n,
+                          int num_subsets, int tile_h, int tile_w,
+                          float* out, void* stream_ptr) {
   if (n <= 0) return 0;
+  if (hp < tile_h || wp < tile_w || p_len <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Args a{img,    hp,     wp,  img_h,       img_w,  pix,    p_len,
+               center, params, bbox, idx,        n,      num_subsets,
+               tile_h, tile_w, false, false,     1,      out};
   switch (model) {
-    case 0: return dispatch_i<0>(interp, c, FA_ARGS);
-    case 1: return dispatch_i<1>(interp, c, FA_ARGS);
-    case 2: return dispatch_i<2>(interp, c, FA_ARGS);
-    case 3: return dispatch_i<3>(interp, c, FA_ARGS);
+    case 0: return dispatch_i<0>(interp, c, threads, a, stream);
+    case 1: return dispatch_i<1>(interp, c, threads, a, stream);
+    case 2: return dispatch_i<2>(interp, c, threads, a, stream);
+    case 3: return dispatch_i<3>(interp, c, threads, a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

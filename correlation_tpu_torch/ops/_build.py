@@ -114,7 +114,7 @@ def load_library():
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.fused_assemble_launch.restype = i32
             lib.fused_assemble_launch.argtypes = [
-                i32, i32, i32,  # model, interp, channels
+                i32, i32, i32, i32,  # model, interp, channels, threads
                 vp, i32, i32, i32, i32,  # img, hp, wp, img_h, img_w
                 vp, i32,  # pix, p_len
                 vp, vp, vp,  # center, params, bbox

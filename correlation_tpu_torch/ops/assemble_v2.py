@@ -26,7 +26,11 @@ stencil lies inside the tile.
 (csrc/fused_assemble.cu) for CUDA tensors and runs
 `fused_assemble_reference`, the plain PyTorch version, for CPU tensors.
 Both take an optional int32 index list of the subsets to assemble, so an
-LM loop over the still-active subsets gathers nothing.
+LM loop over the still-active subsets gathers nothing.  The kernel has two
+paths, a group of lanes per subset for small subsets and a block per
+subset for large ones; `subset_threads` picks one from the padded pixel
+count, and the plain version sums the Gram in that path's order
+(`kernel_order_sum`), so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -46,11 +50,33 @@ ROW_DXC = 3  # x - center_x
 ROW_DYC = 4  # y - center_y
 ROW_UND = 5  # undeformed intensities, rows 5 .. 5 + C (C <= 3)
 
-# Kernel launches by fused_assemble (CUDA tensors only); callers reset it.
+# Kernel launches by fused_assemble (CUDA tensors only), in all, and by
+# shape: {(p_len, tile_h, tile_w): [launches, subsets assembled]}.
+# Callers reset them with reset_launches().
 LAUNCHES = 0
-# Threads per block of the CUDA kernel (kThreads in csrc/fused_assemble.cu);
-# the plain version sums in the same order.
-KERNEL_THREADS = 128
+LAUNCHES_BY_SHAPE: dict[tuple[int, int, int], list[int]] = {}
+
+# The kernel's two paths (csrc/fused_assemble.cu): subsets of at most
+# WARP_MAX_PIXELS padded pixels take WARP_LANES lanes of a warp each (the
+# warp path; kWarpLanes there), larger ones a block of BLOCK_THREADS
+# threads (kBlockThreads; the block path).  The path fixes the order of
+# the Gram sums, so the plain version follows the same rule.
+WARP_MAX_PIXELS = 128
+WARP_LANES = 16
+BLOCK_THREADS = 64
+
+
+def subset_threads(p_len: int) -> int:
+    """Threads that assemble one subset of `p_len` padded pixels:
+    WARP_LANES (the warp path) or BLOCK_THREADS (the block path)."""
+    return WARP_LANES if p_len <= WARP_MAX_PIXELS else BLOCK_THREADS
+
+
+def reset_launches() -> None:
+    """Zero LAUNCHES and LAUNCHES_BY_SHAPE."""
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def _taps_halo(interp: Interpolation) -> tuple[int, int]:
@@ -195,8 +221,11 @@ def fused_assemble_reference(
     params: torch.Tensor,
     bbox: torch.Tensor,
     idx: torch.Tensor | None = None,
+    threads: int | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch fused assembly; same arguments as fused_assemble."""
+    """Plain PyTorch fused assembly; same arguments as fused_assemble.
+    The Gram sums follow the order of `threads` threads a subset, by
+    default the kernel's path for this p_len (subset_threads)."""
     if idx is not None:
         sel = idx.long()
         pix, center, params, bbox = pix[sel], center[sel], params[sel], bbox[sel]
@@ -262,32 +291,37 @@ def fused_assemble_reference(
     g = torch.stack(gs, dim=-1)  # [n, R, P, C], R = NP + 2
     r = g.shape[1]
     iu, ju = torch.triu_indices(r, r, device=g.device)
-    sums = _kernel_order_sum(g[:, iu] * g[:, ju])  # upper triangle
+    threads = subset_threads(pix.shape[2]) if threads is None else threads
+    sums = kernel_order_sum(g[:, iu] * g[:, ju], threads)  # upper triangle
     out = torch.zeros((g.shape[0], 8, 8), dtype=torch.float32, device=g.device)
     out[:, iu, ju] = sums
     out[:, ju, iu] = sums
     return out
 
 
-def _kernel_order_sum(prod: torch.Tensor) -> torch.Tensor:
-    """Sum [n, K, P, C] over pixels and channels in the CUDA kernel's order,
-    so the plain version and the kernel agree bit for bit: thread t of
-    KERNEL_THREADS accumulates pixels t, t + 128, ... (channels inner),
-    each warp folds its 32 lanes by the __shfl_down tree, and the warps'
-    sums add in warp order."""
+def kernel_order_sum(prod: torch.Tensor, threads: int) -> torch.Tensor:
+    """Sum [n, K, P, C] over pixels and channels in the CUDA kernel's order
+    for `threads` threads a subset (16, or a multiple of 32), so the plain
+    version and the kernel agree bit for bit: thread t accumulates pixels
+    t, t + threads, ... (channels inner), each warp (or group of 16 lanes)
+    folds its lanes by a butterfly (lanes 16 apart first, then 8, ..., the
+    tree of a __shfl_down reduction), and the warps' sums add in warp
+    order."""
     n, k, p, c = prod.shape
-    pad = -p % KERNEL_THREADS
+    pad = -p % threads
     if pad:
         prod = torch.nn.functional.pad(prod, (0, 0, 0, pad))
-    x = prod.reshape(n, k, -1, KERNEL_THREADS, c)
-    acc = torch.zeros((n, k, KERNEL_THREADS), dtype=prod.dtype,
-                      device=prod.device)
+    x = prod.reshape(n, k, -1, threads, c)
+    acc = torch.zeros((n, k, threads), dtype=prod.dtype, device=prod.device)
     for j in range(x.shape[2]):
         for ch in range(c):
             acc = acc + x[:, :, j, :, ch]
-    lanes = acc.reshape(n, k, KERNEL_THREADS // 32, 32)
-    for off in (16, 8, 4, 2, 1):
+    group = min(threads, 32)
+    lanes = acc.reshape(n, k, threads // group, group)
+    off = group // 2
+    while off:
         lanes = lanes[..., :off] + lanes[..., off : 2 * off]
+        off //= 2
     warps = lanes[..., 0]
     total = warps[..., 0]
     for w in range(1, warps.shape[-1]):
@@ -379,11 +413,12 @@ def fused_assemble(
     if n == 0:
         return out
     hp, wp, channels = img.shape
+    p_len = pix.shape[2]
     ptr = ctypes.c_void_p
     rc = lib.fused_assemble_launch(
-        int(model), int(interp), channels,
+        int(model), int(interp), channels, subset_threads(p_len),
         ptr(img.data_ptr()), hp, wp, int(img_h), int(img_w),
-        ptr(pix.data_ptr()), pix.shape[2],
+        ptr(pix.data_ptr()), p_len,
         ptr(center.data_ptr()), ptr(params.data_ptr()), ptr(bbox.data_ptr()),
         ptr(idx.data_ptr() if idx is not None else None), n, params.shape[0],
         int(tile_h), int(tile_w), ptr(out.data_ptr()),
@@ -391,4 +426,8 @@ def fused_assemble(
     )
     check_launch(rc, "fused_assemble")
     LAUNCHES += 1
+    counts = LAUNCHES_BY_SHAPE.setdefault((p_len, int(tile_h), int(tile_w)),
+                                          [0, 0])
+    counts[0] += 1
+    counts[1] += n
     return out

@@ -135,3 +135,38 @@ def sequence_problem(
     pts, centers = _grid(num_subsets, img_hw, half, room=num_pairs)
     return (_solver(stop), drifting_sequence(num_pairs, img_hw), pts,
             centers)
+
+
+def assembly_levels(cfg: SolverConfig, batch: SubsetBatch, pyramid: list,
+                    device, seed: int = 1) -> dict:
+    """{level: the fused_assemble arguments of one assembly of every
+    subset} on the deformed frames of `pyramid` (build_pyramid of the
+    [2, H, W, 1] pair), at parameters drawn from `seed` around the
+    dense-grid problem's motion (u ~ 0.3 px noise, v = 1 / 2^level, small
+    gradients), with subset 7 warped out of the image."""
+    import torch
+
+    from correlation_tpu_torch.engine import (
+        compute_level_statics,
+        prepare_levels,
+    )
+
+    statics = compute_level_statics(cfg, batch, pyramid)
+    gb = batch.to_device(device)
+    levels = prepare_levels(cfg, [p[0] for p in pyramid],
+                            [p[1] for p in pyramid], gb.xy, gb.mask,
+                            gb.center0, statics)
+    rng = np.random.default_rng(seed)
+    n = gb.center0.shape[0]
+    out = {}
+    for lvl in cfg.pyramid.levels_coarse_to_fine():
+        st, lv = statics[lvl], levels[lvl]
+        p = np.zeros((n, 6), np.float32)
+        p[:, :2] = rng.normal(0, 0.3, (n, 2))
+        p[:, 1] += 1.0 / (1 << lvl)
+        p[:, 2:] = rng.normal(0, 0.003, (n, 4))
+        p[7, 0] = 4000.0
+        out[lvl] = (cfg.model, cfg.interpolation, st.tile_h, st.tile_w,
+                    st.img_h, st.img_w, lv.def_img, lv.pix, lv.center,
+                    torch.as_tensor(p, device=device), lv.bbox)
+    return out

@@ -5,8 +5,14 @@ PyTorch version of the CUDA kernel) is held against
 correlation_tpu.ops.assemble_v2.fused_assemble run with interpret=True,
 which takes the kernel's non-DMA path: the tile contract the port follows.
 The CUDA kernel itself is compared with the plain version on the card by
-tests_gpu/ and chip_smoke.py.
+tests_gpu/ and chip_smoke.py.  The plain version sums the Gram in the
+order of the kernel's path for the subset size (subset_threads); each
+path's order is held to a float64 sum within float32's error bound.
 """
+
+import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +39,9 @@ GRID = [
 ]
 
 
-def _problem(model, s=5, side=11, channels=1, seed=4):
+def _problem(model, s=5, side=11, channels=1, seed=4, p_len=None):
+    """s subsets of side x side pixels (side odd), the last ragged, padded
+    with masked points at each subset's first pixel to p_len points."""
     spk = Speckle(96, 130, seed=9)
     und = np.floor(spk.image())
     dfm = np.floor(spk.warped_image(u=0.7, v=-0.4))
@@ -52,6 +60,10 @@ def _problem(model, s=5, side=11, channels=1, seed=4):
     mask = np.ones((s, side * side), bool)
     mask[-1, -7:] = False  # one ragged subset
     center = xy.mean(axis=1).astype(np.float32)
+    if p_len is not None:
+        pad = p_len - side * side
+        xy = np.concatenate([xy, np.repeat(xy[:, :1], pad, axis=1)], axis=1)
+        mask = np.concatenate([mask, np.zeros((s, pad), bool)], axis=1)
     und_w = und[xy[..., 1].astype(int), xy[..., 0].astype(int), :]
     rng = np.random.default_rng(seed)
     num_p = _NP[int(model)]
@@ -129,6 +141,89 @@ def test_reference_matches_jax_kernel(model, interp, channels):
     )
 
 
+@pytest.mark.parametrize("side,p_len", [(5, 40), (21, 448)])
+@pytest.mark.parametrize("model,interp", GRID[:2])
+def test_reference_matches_jax_on_both_paths(model, interp, side, p_len):
+    """Subsets of 40 padded pixels (the warp path, as pyramid level 2) and
+    448 (the block path, as level 0)."""
+    warp = p_len <= tv2.WARP_MAX_PIXELS
+    assert tv2.subset_threads(p_len) == (
+        tv2.WARP_LANES if warp else tv2.BLOCK_THREADS)
+    args = _problem(model, s=3, side=side, p_len=p_len)
+    got = _port(model, interp, *args)
+    ref = _jax(model, interp, *args)
+    _assert_gram_close(got, ref, _NP[int(model)])
+    np.testing.assert_allclose(
+        got, ref, rtol=2e-4, atol=np.abs(ref).max() * 5e-6
+    )
+
+
+@pytest.mark.parametrize("threads", [16, 32, 64, 128])
+@pytest.mark.parametrize("p_len", [40, 448])
+def test_kernel_order_sum_within_float32_bound(p_len, threads):
+    """Each order against the float64 sum: within gamma_d * sum |terms|,
+    d the additions a term goes through (its thread's chain, the lane
+    butterfly, the warps in order), gamma_d = d u / (1 - d u)."""
+    rng = np.random.default_rng(p_len + threads)
+    channels = 2
+    prod = rng.normal(size=(4, 36, p_len, channels)) * rng.lognormal(
+        0, 2, size=(4, 36, 1, 1))
+    prod = torch.as_tensor(prod.astype(np.float32))
+    got = tv2.kernel_order_sum(prod, threads).double()
+    exact = prod.double().sum(dim=(2, 3))
+    terms = prod.double().abs().sum(dim=(2, 3))
+    group = min(threads, 32)
+    depth = (-(-p_len // threads) * channels + int(math.log2(group))
+             + threads // group - 1)
+    u = 2.0 ** -24
+    gamma = depth * u / (1 - depth * u)
+    assert ((got - exact).abs() <= gamma * terms).all()
+    assert not torch.equal(got, exact)  # float32 rounding did happen
+
+
+def test_subset_threads_rule_matches_the_kernel_source():
+    """The plain version's order follows the path the kernel takes: the
+    rule's constants are the .cu file's."""
+    src = (Path(tv2.__file__).parent.parent / "csrc"
+           / "fused_assemble.cu").read_text()
+    kernel = {k: int(re.search(rf"constexpr int k{k} = (\d+);", src).group(1))
+              for k in ("BlockThreads", "WarpLanes")}
+    assert tv2.BLOCK_THREADS == kernel["BlockThreads"]
+    assert tv2.WARP_LANES == kernel["WarpLanes"]
+    assert tv2.subset_threads(1) == tv2.WARP_LANES
+    assert tv2.subset_threads(tv2.WARP_MAX_PIXELS) == tv2.WARP_LANES
+    assert tv2.subset_threads(tv2.WARP_MAX_PIXELS + 1) == tv2.BLOCK_THREADS
+
+
+def test_plain_version_takes_the_order_of_any_path():
+    """threads= picks the order; the default is the rule's path."""
+    model, interp = FittingModel.AFFINE, Interpolation.BICUBIC
+    dfm, xy, mask, center, und_w, params = _problem(model, s=3)
+    th, tw = _tiles(dfm, xy)
+    xy_t, mask_t = torch.as_tensor(xy), torch.as_tensor(mask)
+    center_t = torch.as_tensor(center)
+    args = (model, interp, th, tw, dfm.shape[0], dfm.shape[1],
+            tv2.prepare_image(torch.as_tensor(dfm), th, tw),
+            tv2.pack_pixels(xy_t, mask_t, torch.as_tensor(und_w), center_t),
+            center_t, torch.as_tensor(params), tv2.subset_bbox(xy_t, mask_t))
+    rule = tv2.subset_threads(xy.shape[1])
+    default = tv2.fused_assemble_reference(*args)
+    assert torch.equal(default,
+                       tv2.fused_assemble_reference(*args, threads=rule))
+    orders = {t: tv2.fused_assemble_reference(*args, threads=t)
+              for t in (16, 32, 64, 128)}
+    assert any(not torch.equal(orders[16], o) for o in orders.values())
+    for o in orders.values():
+        _assert_gram_close(o.numpy(), default.numpy(), 6)
+
+
+def test_reset_launches():
+    tv2.LAUNCHES += 3
+    tv2.LAUNCHES_BY_SHAPE[(448, 32, 32)] = [2, 8000]
+    tv2.reset_launches()
+    assert tv2.LAUNCHES == 0 and tv2.LAUNCHES_BY_SHAPE == {}
+
+
 def test_out_of_image_flagged():
     model, interp = FittingModel.UV, Interpolation.BICUBIC
     dfm, xy, mask, center, und_w, _ = _problem(model, s=3)
@@ -189,5 +284,7 @@ def test_wrapper_validates_inputs():
               idx=torch.tensor([0, 2], dtype=torch.int32))
     # CPU tensors never reach the kernel.
     before = tv2.LAUNCHES
+    shapes = dict(tv2.LAUNCHES_BY_SHAPE)
     _port(model, interp, dfm, xy, mask, center, und_w, params)
     assert tv2.LAUNCHES == before
+    assert tv2.LAUNCHES_BY_SHAPE == shapes

@@ -260,3 +260,27 @@ def test_design_sweep_names_the_shipped_gram_big():
     name = ds.shipped_gram_big("#define GRAM_BIG_WARPS 2\n"
                                "#define GRAM_BIG_DEPTH 4\n")
     assert name == "w2_d4"
+
+
+def test_design_sweep_rejects_unknown_sections(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert ds.main(["k1", "k2"]) == 2
+
+
+def test_design_sweep_reads_every_kernel_of_a_build():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN4_GN_19fused_assemble_"
+        "warpILi3ELi2ELi1EEEvNS_4ArgsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 105 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN4_GN_20fused_assemble_"
+        "blockILi3ELi2ELi1EEEvNS_4ArgsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers\n"
+    )
+    entries = ds.ptxas_entries(log)
+    assert sorted(entries.values()) == [(64, 12), (105, 0)]
+    assert ds.ptxas_usage(log, ds.K1_KERNELS["warp"]) == (105, 0)
+    assert ds.ptxas_usage(log, ds.K1_KERNELS["block"]) == (64, 12)
+    assert ds.ptxas_usage(log, ds.K1_KERNELS["first"]) == (None, None)

@@ -1,7 +1,9 @@
 """The CUDA fused assembly against its plain PyTorch version, on the card.
 
 The plain version sums the Gram in the kernel's order and both round every
-per-pixel operation alike, so the kernel must equal it bit for bit.
+per-pixel operation alike, so the kernel must equal it bit for bit, on
+the warp path (at most assemble_v2.WARP_MAX_PIXELS padded pixels a
+subset) and on the block path (more).
 """
 
 import os
@@ -41,41 +43,65 @@ def dev():
     return torch.device("cuda")
 
 
-def _args(model, interp, channels, dev, s=40):
-    rng = np.random.default_rng(int(model) * 10 + channels)
-    img = np.stack([speckle(120, 150, 1) * f
+# Padded pixels a subset: 169 (block path) and 81 (warp path).
+SIDES = {"block": 13, "warp": 9}
+
+
+def _args(model, interp, channels, dev, s=40, side=13, p_len=None,
+          tile=None, hw=(120, 150)):
+    """Subsets of the first p_len (default side^2) points of a side x side
+    grid, one reaching past the left edge; tile (th, tw) by default from
+    the extent."""
+    h, w = hw
+    p_len = side * side if p_len is None else p_len
+    rng = np.random.default_rng(int(model) * 10 + channels + p_len)
+    img = np.stack([speckle(h, w, 1) * f
                     for f in (1.0, 0.8, 0.6)[:channels]], -1)
-    side = 13
-    xy = np.zeros((s, side * side, 2), np.float32)
+    half = side // 2
+    xy = np.zeros((s, p_len, 2), np.float32)
     for i in range(s):
-        cx, cy = rng.integers(8, 142), rng.integers(8, 112)
+        cx = rng.integers(half + 2, w - half - 2)
+        cy = rng.integers(half + 2, h - half - 2)
         if i == 0:
-            cx, cy = 4, 60  # reaches past the left edge: bad pixels
-        gx, gy = np.meshgrid(np.arange(cx - 6, cx + 7),
-                             np.arange(cy - 6, cy + 7), indexing="ij")
-        xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)
-    mask = rng.random((s, side * side)) > 0.1
+            cx, cy = half - 2, h // 2  # reaches past the left edge
+        gx, gy = np.meshgrid(np.arange(cx - half, cx - half + side),
+                             np.arange(cy - half, cy - half + side),
+                             indexing="ij")
+        xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)[:p_len]
+    mask = rng.random((s, p_len)) > 0.1
     center = xy.mean(axis=1).astype(np.float32)
-    und = img[np.clip(xy[..., 1], 0, 119).astype(int),
-              np.clip(xy[..., 0], 0, 149).astype(int)]
+    und = img[np.clip(xy[..., 1], 0, h - 1).astype(int),
+              np.clip(xy[..., 0], 0, w - 1).astype(int)]
     num_p = NUM_PARAMS[model]
     params = rng.normal(0, 0.05, (s, num_p)).astype(np.float32)
     params[:, :2] += rng.normal(0, 2.0, (s, min(2, num_p)))
+    params[0, 0] = -2.0  # subset 0 reaches further past the left edge
 
     def t(a):
         return torch.as_tensor(a, device=dev)
 
-    th, tw = v2.choose_tile(12, 12, 120, 152)
+    th, tw = tile or v2.choose_tile(side - 1, side - 1, h, -(-w // 8) * 8)
     xy_t, mask_t, center_t = t(xy), t(mask), t(center)
-    return (model, interp, th, tw, 120, 150, v2.prepare_image(t(img), th, tw),
+    return (model, interp, th, tw, h, w, v2.prepare_image(t(img), th, tw),
             v2.pack_pixels(xy_t, mask_t, t(und), center_t), center_t,
             t(params), v2.subset_bbox(xy_t, mask_t))
 
 
+def _assert_equal_plain(args, idx=None):
+    got = v2.fused_assemble(*args, idx)
+    ref = v2.fused_assemble_reference(*args, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got - ref).abs().max()
+    return got
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
 @pytest.mark.parametrize("channels", [1, 2, 3])
 @pytest.mark.parametrize("model,interp", GRID)
-def test_kernel_equals_plain(dev, model, interp, channels):
-    args = _args(model, interp, channels, dev)
+def test_kernel_equals_plain(dev, model, interp, channels, path):
+    args = _args(model, interp, channels, dev, side=SIDES[path])
+    block = v2.subset_threads(args[7].shape[2]) == v2.BLOCK_THREADS
+    assert block == (path == "block")
     got = v2.fused_assemble(*args)
     again = v2.fused_assemble(*args)
     ref = v2.fused_assemble_reference(*args)
@@ -85,17 +111,79 @@ def test_kernel_equals_plain(dev, model, interp, channels):
     assert got[0, NUM_PARAMS[model] + 1, NUM_PARAMS[model] + 1] > 0
 
 
-def test_index_list_on_card(dev):
-    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev)
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_index_list_on_card(dev, path):
+    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev,
+                 side=SIDES[path])
     full = v2.fused_assemble(*args)
-    idx = torch.tensor([5, 0, 39, 5], dtype=torch.int32, device=dev)
-    part = v2.fused_assemble(*args, idx)
-    assert torch.equal(part, full[idx.long()])
+    for rows in ([5, 0, 39, 5], [17], [3, 3, 3, 3, 3, 3, 3]):
+        idx = torch.tensor(rows, dtype=torch.int32, device=dev)
+        part = _assert_equal_plain(args, idx)
+        assert torch.equal(part, full[idx.long()])
     empty = v2.fused_assemble(*args, idx[:0])
     assert empty.shape == (0, 8, 8)
 
 
-def test_index_out_of_range_stops_kernel(dev):
+@pytest.mark.parametrize("p_len", [1, 33, 129, 448, 600])
+def test_ragged_pixel_counts(dev, p_len):
+    """Pixel counts on both sides of the path threshold, none a multiple
+    of the threads; 600 is more pixels than the bench's level 0."""
+    side = int(np.ceil(np.sqrt(p_len)))
+    for model, interp in GRID[:2]:
+        args = _args(model, interp, 1, dev, s=9, side=side, p_len=p_len)
+        _assert_equal_plain(args)
+
+
+@pytest.mark.parametrize("s", [1, 3, 5, 7, 9])
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_subset_counts(dev, path, s):
+    """Subset counts that are no multiple of the subsets a block."""
+    args = _args(FittingModel.UVQ, Interpolation.BICUBIC, 2, dev, s=s,
+                 side=SIDES[path])
+    _assert_equal_plain(args)
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_tile_near_shared_memory_limit(dev, path):
+    """A 224 x 224 tile (196 KB) with its pixel rows: one subset a block
+    on the warp path."""
+    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev, s=6,
+                 side=SIDES[path], tile=(224, 224), hw=(240, 240))
+    got = _assert_equal_plain(args)
+    assert got[0, 7, 7] > 0
+
+
+# Shared memory a block may give its subsets (csrc/fused_assemble.cu:
+# kMaxSmem less the reduction's AFFINE slots, 36 floats for each of the
+# block path's 2 warps or the warp path's 8 lane groups).
+SMEM_BUDGET = {"block": 227 * 1024 - 4 * 36 * 2,
+               "warp": 227 * 1024 - 4 * 36 * 8}
+# Tiles that fit in that budget alone but not with the subset's pixel
+# rows beside them, so the kernel reads the rows from memory.
+ROWLESS_TILES = {"block": (240, 240), "warp": (240, 239)}
+
+
+def _tile_and_rows_bytes(tile, p_len, c=1):
+    """Shared-memory bytes of a tile and of a subset's pixel rows, as the
+    kernel lays them out (tile rows an odd pitch apart, each region a
+    multiple of 4 floats)."""
+    th, tw = tile
+    return (-(-th * ((tw * c) | 1) // 4) * 16,
+            -(-(5 + c) * p_len // 4) * 16)
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_rows_read_from_memory_beside_a_big_tile(dev, path):
+    tile, rows = _tile_and_rows_bytes(ROWLESS_TILES[path], SIDES[path] ** 2)
+    assert tile <= SMEM_BUDGET[path] < tile + rows
+    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev, s=6,
+                 side=SIDES[path], tile=ROWLESS_TILES[path], hw=(256, 256))
+    got = _assert_equal_plain(args)
+    assert got[0, 7, 7] > 0
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_index_out_of_range_stops_kernel(dev, path):
     # The kernel checks each index against S and traps, which leaves the
     # CUDA context unusable: run it in a process of its own.
     code = (
@@ -103,7 +191,7 @@ def test_index_out_of_range_stops_kernel(dev):
         "from correlation_tpu_torch.ops import assemble_v2 as v2\n"
         "dev = torch.device('cuda')\n"
         "args = t._args(t.FittingModel.AFFINE, t.Interpolation.BICUBIC, 1,"
-        " dev)\n"
+        f" dev, side={SIDES[path]})\n"
         "ok = torch.tensor([39], dtype=torch.int32, device=dev)\n"
         "v2.fused_assemble(*args, ok); torch.cuda.synchronize()\n"
         "print('valid index ok', flush=True)\n"
