@@ -11,7 +11,9 @@ Phases, one informational line each:
      version on the card, bit for bit, over the model x interpolation x
      channel grid and at the dense-grid problem's level 0/1/2 shapes
      (4096 subsets; the block path at level 0, the warp path at 1-2),
-     with one subset warped out of the image;
+     with one subset warped out of the image, and at 248x248 and 320x320
+     tiles that shared memory cannot hold (the global-tile path, both
+     paths, C = 1 and 3);
   4. pyramid: the pyramid built on the card equals the CPU pyramid;
   5. slice: correlate_frames on the dense-grid problem (4096 21x21
      subsets, AFFINE/BICUBIC, levels 2-1-0, 64 chained frame pairs) on
@@ -40,13 +42,27 @@ Phases, one informational line each:
      a call, and strict-Lagrangian pair by pair over 4 pairs; each checked
      for finite parameters, the hard-error fraction, the known motion and
      kernel launches, and its first 256 subsets x 2 pairs against the
-     plain version on the CPU.
-Then a JSON line with the kernel records (K1 at each level, K2, the five
-stages): launches on the main path (K1: its level's, with the mean subsets
-a launch and the threads a subset), agreement with the plain version, the
-kernel's, the plain version's and the library call's times, and the
-kernel's bound, the least time the card could take for the same work
-(bound()); and, last, the JSON line {"ok": true, "device": {...}}.  Any failed phase raises and the script
+     plain version on the CPU;
+  9. domains, on the same drifting frames, AFFINE/BICUBIC, levels 2-1-0:
+     an annulus of 8 x 64 = 512 sectors (annular_problem) over 32 pairs,
+     Eulerian-First and Lagrangian-Previous, and a freehand blob of about
+     7 x 10^4 px (blob_problem), whose level-0 tile is read from memory
+     (the global-tile path), over 8 pairs, each checked as in phase 8
+     (the CPU on the outermost ring's 64 sectors, or the blob); the
+     blob's global-tile assembly timed as in phase 6; then, on pair
+     (0, 1), a 16 x 16 grid of 21x21 rectangles, the annulus and the
+     blob: correlate_many against three correlate calls (bit for bit) and
+     the CPU, and combine_batches + split_result against the separate
+     solves (error codes identical, params over 5e-5 named, and each
+     domain padded to the combined lengths equal to its share bit for
+     bit).
+Then a JSON line with the kernel records (K1 at each level and on the
+global-tile path, K2, the five stages): launches on the main path (K1:
+its level's, with the mean subsets a launch and the threads a subset),
+agreement with the plain version, the kernel's, the plain version's and
+the library call's times, and the kernel's bound, the least time the card
+could take for the same work (bound()); and, last, the JSON line
+{"ok": true, "device": {...}}.  Any failed phase raises and the script
 exits non-zero without those lines; so does a machine without a CUDA
 device, or a directory without the package.
 """
@@ -62,6 +78,8 @@ NUM_SUBSETS = 4096
 CPU_SUBSETS = 256
 SEQ_PAIRS = 32
 STRICT_PAIRS = 4
+BLOB_PAIRS = 8
+ANNULUS_CPU_SECTORS = 64
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
@@ -121,51 +139,81 @@ def gram_check(got, ref, num_p, what):
             bool(np.array_equal(got, ref, equal_nan=True)))
 
 
+def tile_memory(v2, p_len, tile_h, tile_w, channels):
+    """"shared" or "global": where K1 holds a subset's tile at this shape
+    (assemble_v2.tile_in_shared on the path of subset_threads(p_len))."""
+    return ("shared" if v2.tile_in_shared(tile_h, tile_w, channels,
+                                          v2.subset_threads(p_len))
+            else "global")
+
+
+def square_cases(torch, v2, cfgmod, speckle, dev, h, w, side, tile,
+                 channels, grid, rng):
+    """Five side x side subsets on an h x w texture with `channels`
+    channels, assembled in a tile x tile tile (by default from the
+    extent): (name, NP, fused_assemble arguments) for each model /
+    interpolation pair of `grid`, at parameters near (0.7, -0.4)."""
+    import numpy as np
+
+    img1 = speckle(h, w, 9)
+    s, half = 5, side // 2
+    xy = np.zeros((s, side * side, 2), np.float32)
+    for i in range(s):
+        cx, cy = 20 + 13 * i, 25 + 9 * i
+        gx, gy = np.meshgrid(np.arange(cx - half, cx + half + 1),
+                             np.arange(cy - half, cy + half + 1),
+                             indexing="ij")
+        xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)
+    mask = np.ones((s, side * side), bool)
+    center = xy.mean(axis=1).astype(np.float32)
+    img = np.stack([img1 * f for f in (1.0, 0.8, 0.6)[:channels]], -1)
+    und_w = img[xy[..., 1].astype(int), xy[..., 0].astype(int)]
+    th, tw = tile or v2.choose_tile(side - 1, side - 1, h, -(-w // 8) * 8)
+    path = (f"{side}x{side}, {v2.subset_threads(side * side)} threads, tile "
+            f"{th}x{tw} in {tile_memory(v2, side * side, th, tw, channels)} "
+            f"memory")
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    xy_t, mask_t, center_t = t(xy), t(mask), t(center)
+    pix = v2.pack_pixels(xy_t, mask_t, t(und_w), center_t)
+    bbox = v2.subset_bbox(xy_t, mask_t)
+    dimg = v2.prepare_image(t(img), th, tw)
+    for model, interp in grid:
+        num_p = cfgmod.NUM_PARAMS[model]
+        params = rng.normal(0, 0.01, (s, num_p)).astype(np.float32)
+        params[:, 0] += 0.7
+        if num_p > 1:
+            params[:, 1] -= 0.4
+        yield (f"{model.name}/{interp.name}/C{channels} ({path})", num_p,
+               (model, interp, th, tw, h, w, dimg, pix, center_t,
+                t(params), bbox))
+
+
 def grid_cases(torch, v2, cfgmod, speckle, dev):
     """tests/test_assemble_v2.py's grid: four model/interpolation pairs x
     C in {1, 3}, five 11x11 subsets on a 96x130 texture (the warp path),
-    and again with 23x23 subsets (the block path)."""
+    and again with 23x23 subsets (the block path); then the global-tile
+    path, AFFINE / BICUBIC: the block path at 248x248 and 320x320 tiles,
+    C = 1 and 3, and the warp path at a 320x320 tile."""
     import numpy as np
 
     rng = np.random.default_rng(9)
-    img1 = speckle(96, 130, 9)
     fm, fi = cfgmod.FittingModel, cfgmod.Interpolation
     grid = [(fm.AFFINE, fi.BICUBIC), (fm.UV, fi.BILINEAR),
             (fm.UVQ, fi.BICUBIC), (fm.U, fi.NEAREST)]
-    s = 5
     for side in (11, 23):
-        half = side // 2
-        xy = np.zeros((s, side * side, 2), np.float32)
-        for i in range(s):
-            cx, cy = 20 + 13 * i, 25 + 9 * i
-            gx, gy = np.meshgrid(np.arange(cx - half, cx + half + 1),
-                                 np.arange(cy - half, cy + half + 1),
-                                 indexing="ij")
-            xy[i] = np.stack([gx.ravel(), gy.ravel()], -1)
-        mask = np.ones((s, side * side), bool)
-        center = xy.mean(axis=1).astype(np.float32)
-        path = f"{side}x{side}, {v2.subset_threads(side * side)} threads"
         for channels in (1, 3):
-            img = np.stack([img1 * f for f in (1.0, 0.8, 0.6)[:channels]], -1)
-            und_w = img[xy[..., 1].astype(int), xy[..., 0].astype(int)]
-            th, tw = v2.choose_tile(side - 1, side - 1, 96, 136)
-
-            def t(a):
-                return torch.as_tensor(a, device=dev)
-
-            xy_t, mask_t, center_t = t(xy), t(mask), t(center)
-            pix = v2.pack_pixels(xy_t, mask_t, t(und_w), center_t)
-            bbox = v2.subset_bbox(xy_t, mask_t)
-            dimg = v2.prepare_image(t(img), th, tw)
-            for model, interp in grid:
-                num_p = cfgmod.NUM_PARAMS[model]
-                params = rng.normal(0, 0.01, (s, num_p)).astype(np.float32)
-                params[:, 0] += 0.7
-                if num_p > 1:
-                    params[:, 1] -= 0.4
-                yield (f"{model.name}/{interp.name}/C{channels} ({path})",
-                       num_p, (model, interp, th, tw, 96, 130, dimg, pix,
-                               center_t, t(params), bbox))
+            yield from square_cases(torch, v2, cfgmod, speckle, dev, 96, 130,
+                                    side, None, channels, grid, rng)
+    for side, tile, channels in ((23, 248, 1), (23, 248, 3), (23, 320, 1),
+                                 (23, 320, 3), (11, 320, 1)):
+        check(tile_memory(v2, side * side, tile, tile, channels) == "global",
+              f"a {tile}x{tile} tile at C = {channels} fits in shared memory")
+        yield from square_cases(torch, v2, cfgmod, speckle, dev, tile + 8,
+                                tile + 8, side, (tile, tile), channels,
+                                grid[:1], rng)
 
 
 def experiments_phase(torch, dev, smi):
@@ -368,6 +416,328 @@ def sequence_phase(torch, dev, smi, v2):
               f"mismatches of {g['error'].size}")
 
 
+def level_shapes(cfg, pts, frames, dev):
+    """{level: (p_len, tile_h, tile_w)}: the fused_assemble shapes a
+    sequence over `pts` on `frames` launches (LAUNCHES_BY_SHAPE's keys)."""
+    import torch
+
+    from correlation_tpu_torch.domains import make_batch
+    from correlation_tpu_torch.engine import compute_level_statics
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+
+    batch = make_batch(pts, None, cfg.pyramid.stop)
+    pyr = build_pyramid(torch.as_tensor(frames[:1], device=dev).float(),
+                        cfg.pyramid.stop)
+    statics = compute_level_statics(cfg, batch, pyr)
+    return {lvl: (batch.xy[lvl].shape[1], st.tile_h, st.tile_w)
+            for lvl, st in statics.items()}
+
+
+def domain_run(torch, dev, smi, v2, name, cfg, scfg, frames, pts, expect,
+               cpu_subsets):
+    """One run_sequence over a domain's sectors (centers = their point
+    means) on the card: checked for finite parameters, the hard-error
+    fraction, the known motion (expect(t): the (u, v) of pair t) and
+    launches at every level's shape, and its last cpu_subsets sectors x 2
+    pairs against the plain version on the CPU.  Those must give the
+    whole set's padded lengths and tiles (for the annulus: the outermost
+    ring, its largest sectors), else the kernel's path and sum order
+    would differ between the two runs.  Returns the launches by shape."""
+    import numpy as np
+
+    from correlation_tpu_torch.sequence import run_sequence
+    from correlation_tpu_torch.utils.profiling import SolveMeter
+
+    pairs = len(frames) - 1
+    shapes = level_shapes(cfg, pts, frames, dev)
+    meter = SolveMeter()
+    torch.cuda.synchronize()
+    v2.reset_launches()
+    t0 = time.perf_counter()
+    recs = run_sequence(InMemoryFrames(frames), pts, scfg, centers=None,
+                        meter=meter, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_shape = {k: list(v) for k, v in v2.LAUNCHES_BY_SHAPE.items()}
+    check(len(recs) == pairs, f"{name}: {len(recs)} records of {pairs}")
+    missing = {lvl: k for lvl, k in shapes.items() if k not in by_shape}
+    check(not missing, f"{name}: no kernel launch at {missing}")
+    params = np.stack([r.params for r in recs])
+    errors = np.stack([r.error for r in recs])
+    check(np.isfinite(params).all(), f"{name}: non-finite parameters")
+    hard = float(np.mean((errors != 0) & (errors != 3)))
+    check(hard < 0.005, f"{name}: hard-error fraction {hard}")
+    worst = max(float(np.abs(np.median(params[t][:, :2], axis=0)
+                             - expect(t)).max()) for t in range(pairs))
+    check(worst <= 0.02, f"{name}: median (u, v) off by {worst}")
+    n = len(pts)
+    part = pts[n - cpu_subsets:]
+    check(level_shapes(cfg, part, frames, "cpu") == shapes,
+          f"{name}: the CPU's sectors are not padded and tiled as the card's")
+    cpu = run_sequence(InMemoryFrames(frames[:3]), part, scfg,
+                       centers=None, device="cpu")
+    g = {k: np.stack([getattr(r, k)[n - cpu_subsets:] for r in recs[:2]])
+         for k in ("params", "iterations", "error")}
+    c = {k: np.stack([getattr(r, k) for r in cpu])
+         for k in ("params", "iterations", "error")}
+    p_diff = float(np.abs(g["params"] - c["params"]).max())
+    mismatch = int(((g["iterations"] != c["iterations"])
+                    | (g["error"] != c["error"])).sum())
+    check(p_diff <= 1e-3, f"{name}: card vs CPU params differ by {p_diff}")
+    check(mismatch <= 0.01 * g["error"].size,
+          f"{name}: {mismatch} iteration/error mismatches card vs CPU")
+    levels = ", ".join(
+        f"L{lvl} {k[0]} px tile {k[1]}x{k[2]} ({tile_memory(v2, *k, 1)}, "
+        f"{v2.subset_threads(k[0])} threads): {by_shape[k][0]} launches"
+        for lvl, k in sorted(shapes.items()))
+    print(f"domains {name} ({smi}): {n} sectors x {pairs} pairs in "
+          f"{wall:.3f} s = {n * pairs / wall:.1f} solves/s over the whole "
+          f"run, {meter.solves_per_s:.1f} in the solver calls; {levels}; "
+          f"mean iterations "
+          f"{np.stack([r.iterations for r in recs]).mean():.3f}; hard-error "
+          f"fraction {hard}; median (u, v) within {worst:.5f} of the motion;"
+          f" card vs CPU plain (the last {len(part)} sectors x 2 pairs): "
+          f"max |dp| {p_diff:.3e}, {mismatch} iteration/error mismatches of "
+          f"{g['error'].size}")
+    return by_shape, shapes
+
+
+def multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom, grid=16):
+    """Pair (0, 1) of the drifting frames over three domains: a grid x grid
+    block of 21 x 21 rectangles around the annulus's center, the annulus
+    and the blob.  correlate_many
+    must equal three correlate calls bit for bit, and the card the CPU (on
+    the first 64 rectangles and sectors, at the full batches' extents);
+    one combined batch (combine_batches, every subset at the blob's tile
+    and padded length) split back (split_result) is held to the separate
+    solves: identical error codes, and every subset whose params differ
+    by more than 5e-5 is named.  The cause of such a difference is
+    checked: each domain solved alone at the combined batch's padded
+    lengths must equal its share of the combined solve bit for bit."""
+    import numpy as np
+
+    from correlation_tpu_torch import (
+        SubsetBatch,
+        combine_batches,
+        correlate,
+        correlate_many,
+        split_result,
+    )
+    from correlation_tpu_torch.domains import (
+        RectangularDomain,
+        annular_batch,
+        blob_batch,
+        rectangular_batch,
+    )
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+
+    stop = cfg.pyramid.stop
+    names = ["rectangles", "annulus", "blob"]
+    half = 21 * grid // 2
+    cx, cy = int(ann_dom.x_center), int(ann_dom.y_center)
+    rect = RectangularDomain(cx - half, cy - half, cx + half, cy + half, grid,
+                             grid)
+    batches = [rectangular_batch(rect, stop), annular_batch(ann_dom, stop),
+               blob_batch(blob_dom, stop)]
+    check(batches[0].xy[0].shape[1] == 448, "rectangles are not 21x21")
+    pair = torch.as_tensor(frames[:2], device=dev).float()
+    pyr = build_pyramid(pair, stop)
+    und, dfm = [p[0] for p in pyr], [p[1] for p in pyr]
+    p0s = [np.zeros((b.num_subsets, cfg.num_params), np.float32)
+           for b in batches]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many = correlate_many(cfg, und, dfm, batches, p0s, device=dev)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    for name, b, p0, got in zip(names, batches, p0s, many):
+        sep = correlate(cfg, und, dfm, b, p0, device=dev)
+        for f in got._fields:
+            check(torch.equal(getattr(got, f), getattr(sep, f)),
+                  f"multi-ROI: correlate_many's {name} {f} differs from its "
+                  f"correlate call")
+        err = got.error.cpu().numpy()
+        check(float(np.mean((err != 0) & (err != 3))) < 0.005,
+              f"multi-ROI {name}: hard errors")
+        med = np.median(got.params[:, :2].cpu().numpy(), axis=0)
+        check(np.abs(med - [0.0, 1.0]).max() <= 0.02,
+              f"multi-ROI {name}: median (u, v) = {med}")
+
+    cut = 64
+    subs = [SubsetBatch([a[:cut] for a in b.xy], [m[:cut] for m in b.mask],
+                        b.center0[:cut], b.extents) for b in batches]
+    cpu = correlate_many(cfg, [a.cpu() for a in und], [a.cpu() for a in dfm],
+                         subs, [p[:cut] for p in p0s], device="cpu")
+    p_diff, mismatch, total = 0.0, 0, 0
+    for got, ref in zip(many, cpu):
+        k = ref.params.shape[0]
+        p_diff = max(p_diff, float((got.params[:k].cpu()
+                                    - ref.params).abs().max()))
+        mismatch += int(((got.iterations[:k].cpu() != ref.iterations)
+                         | (got.error[:k].cpu() != ref.error)).sum())
+        total += k
+    check(p_diff <= 1e-3, f"multi-ROI: card vs CPU params differ by {p_diff}")
+    check(mismatch <= 0.01 * total,
+          f"multi-ROI: {mismatch} iteration/error mismatches card vs CPU")
+
+    combined, counts = combine_batches(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = correlate(cfg, und, dfm, combined,
+                    np.zeros((combined.num_subsets, cfg.num_params),
+                             np.float32), device=dev)
+    torch.cuda.synchronize()
+    combined_s = time.perf_counter() - t0
+    over = []
+    worst = 0.0
+    lengths = [a.shape[1] for a in combined.xy]
+    for name, b, part, sep in zip(names, batches, split_result(res, counts),
+                                  many):
+        check(torch.equal(part.error, sep.error),
+              f"multi-ROI: combined {name} error codes differ")
+        dp = (part.params - sep.params).abs().amax(dim=1).cpu().numpy()
+        worst = max(worst, float(dp.max()))
+        its = (part.iterations.cpu().numpy(), sep.iterations.cpu().numpy())
+        over += [f"{name}[{i}] |dp| {dp[i]:.2e}, iterations {its[0][i]} "
+                 f"combined vs {its[1][i]} separate"
+                 for i in np.flatnonzero(dp > 5e-5)]
+        # The padded length sets the kernel's path and so the order of the
+        # Gram sums: padded to the combined lengths (its own tiles kept),
+        # the domain's own solve must equal its share of the combined one.
+        padded = correlate(cfg, und, dfm, padded_to(b, lengths),
+                           np.zeros((b.num_subsets, cfg.num_params),
+                                    np.float32), device=dev)
+        for f in ("params", "chi", "iterations", "error"):
+            check(torch.equal(getattr(padded, f), getattr(part, f)),
+                  f"multi-ROI: {name} padded to the combined lengths gives "
+                  f"another {f} than the combined solve")
+    print(f"multi-ROI ({smi}): {sum(counts)} subsets ({counts}); "
+          f"correlate_many {many_s:.3f} s, equal to separate correlate "
+          f"calls bit for bit; card vs CPU plain ({total} subsets): max "
+          f"|dp| {p_diff:.3e}, {mismatch} iteration/error mismatches; "
+          f"combined batch (L0 {combined.xy[0].shape[1]} px a subset) "
+          f"{combined_s:.3f} s, max |dp| against the separate solves "
+          f"{worst:.3e}, error codes identical; over 5e-5: "
+          f"{'; '.join(over) or 'none'}; why: each domain solved alone but "
+          f"padded to the combined lengths {lengths} (so on the combined "
+          f"batch's kernel paths and sum orders) equals its share of the "
+          f"combined solve bit for bit, so every difference is the order of "
+          f"the Gram sums, which the delta-chi stop at precision "
+          f"{cfg.precision:g} carries into the last step")
+
+
+def padded_to(batch, lengths):
+    """`batch` with each level's point arrays zero-padded (mask False) to
+    `lengths`, its extents, and so its tiles, kept."""
+    import numpy as np
+
+    from correlation_tpu_torch import SubsetBatch
+
+    xy = [np.pad(a, ((0, 0), (0, n - a.shape[1]), (0, 0)))
+          for a, n in zip(batch.xy, lengths)]
+    mask = [np.pad(m, ((0, 0), (0, n - m.shape[1])))
+            for m, n in zip(batch.mask, lengths)]
+    return SubsetBatch(xy, mask, batch.center0, batch.extents)
+
+
+def domains_phase(torch, dev, smi, v2):
+    """Phase 9: the annulus in two sequence modes, the blob (its level-0
+    tile on the global-tile path) and the multi-ROI checks.  Returns the
+    kernel record of the global-tile assembly."""
+    import numpy as np
+
+    from correlation_tpu_torch.config import (
+        DeformationDescription,
+        ReferenceImage,
+    )
+    from correlation_tpu_torch.domains import make_batch
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.problems import (
+        annular_problem,
+        assembly_levels,
+        blob_problem,
+    )
+    from correlation_tpu_torch.sequence import SequenceConfig
+    from correlation_tpu_torch.utils.profiling import cuda_time_ms, graph_ms
+
+    cfg, frames, pts, ann_dom = annular_problem(SEQ_PAIRS)
+    for name, scfg, per_pair in (
+        ("annulus eulerian-first",
+         SequenceConfig(solver=cfg, frame_chunk=SEQ_PAIRS), False),
+        ("annulus lagrangian-previous",
+         SequenceConfig(solver=cfg, frame_chunk=SEQ_PAIRS,
+                        deformation=DeformationDescription.LAGRANGIAN,
+                        reference=ReferenceImage.PREVIOUS), True),
+    ):
+        domain_run(torch, dev, smi, v2, name, cfg, scfg, frames, pts,
+                   lambda t, p=per_pair: np.array([0.0,
+                                                   1.0 if p else t + 1.0]),
+                   ANNULUS_CPU_SECTORS)
+
+    bcfg, bframes, bpts, blob_dom = blob_problem(BLOB_PAIRS)
+    by_shape, shapes = domain_run(
+        torch, dev, smi, v2, "blob eulerian-first", bcfg,
+        SequenceConfig(solver=bcfg, frame_chunk=BLOB_PAIRS), bframes, bpts,
+        lambda t: np.array([0.0, t + 1.0]), 1)
+    key = shapes[0]
+    check(tile_memory(v2, *key, 1) == "global",
+          f"the blob's level-0 tile {key[1:]} fits in shared memory")
+    check(by_shape[key][0] > 0, "the global-tile path was never launched")
+
+    # The global-tile assembly on its own: the blob at level 0.
+    batch = make_batch(bpts, None, bcfg.pyramid.stop)
+    pyr = build_pyramid(torch.as_tensor(bframes[:2], device=dev).float(),
+                        bcfg.pyramid.stop)
+    args = assembly_levels(bcfg, batch, pyr, dev)[0]
+    check(tuple([args[7].shape[2], *args[2:4]]) == key,
+          "the timed shape is not the run's level-0 shape")
+    got = v2.fused_assemble(*args)
+    ref = v2.fused_assemble_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "the global-tile assembly differs from its "
+          "plain version")
+    kernel_ms = graph_ms(lambda: v2.fused_assemble(*args), 20)
+    plain_ms = cuda_time_ms(lambda: v2.fused_assemble_reference(*args), 5)
+    img, pix, center, params, bbox = args[6:]
+    n, p_len = pix.shape[0], pix.shape[2]
+    # Each subset reads its own tile once (from L2), not the whole image.
+    tile_bytes = min(n * key[1] * key[2] * img.shape[2] * 4, nbytes(img))
+    moved = (tile_bytes + nbytes(center, params, bbox)
+             + n * (5 + img.shape[2]) * p_len * 4 + n * 64 * 4)
+    ops = n * p_len * K1_OPS_PER_PIXEL
+    bound_ms, bound_by = bound(moved, ops, "fp32")
+    print(f"time ({smi}): global-tile assembly (the blob at L0, {n} subset "
+          f"of {p_len} px, tile {key[1]}x{key[2]} read from memory, "
+          f"{v2.subset_threads(p_len)} threads) kernel {kernel_ms:.4f} ms "
+          f"(graph), plain {plain_ms:.4f} ms; bound {moved / 1e6:.3f} MB "
+          f"(tiles {tile_bytes / 1e6:.3f} MB), "
+          f"{ops / 1e9:.4f} GFLOP -> {bound_ms:.4f} ms ({bound_by}), kernel "
+          f"at {bound_ms / kernel_ms:.1%} of it; bit-identical to the plain "
+          f"version")
+    launches, subsets = by_shape[key]
+    record = {
+        "name": "fused_assemble_L0_global_tile",
+        "route": "cuda",
+        "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
+        "replaces": "correlation_tpu/ops/assemble_v2.py:964",
+        "launches": launches,  # the blob sequence's, at this shape
+        "subsets_per_launch": subsets / launches,
+        "threads_per_subset": v2.subset_threads(p_len),
+        "max_abs_err": float((got - ref).abs().max()),
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_call": None,
+        "library_ms": None,
+    }
+    del got, ref, args, pyr
+    torch.cuda.empty_cache()
+
+    multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom)
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -566,6 +936,9 @@ def main() -> int:
 
     # ---- 8. the sequence runs -----------------------------------------------
     sequence_phase(torch, dev, smi, v2)
+
+    # ---- 9. annular and blob domains, multi-ROI ----------------------------
+    kernels.append(domains_phase(torch, dev, smi, v2))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,20 @@ from correlation_tpu_torch.config import (
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu_torch.domains import SubsetBatch, make_batch
+from correlation_tpu_torch.domains import (
+    AnnularDomain,
+    BlobDomain,
+    RectangularDomain,
+    SubsetBatch,
+    combine_batches,
+    make_batch,
+    split_result,
+)
 from correlation_tpu_torch.engine import (
     CorrelationResult,
     correlate,
     correlate_frames,
+    correlate_many,
 )
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.sequence import (
@@ -36,9 +45,15 @@ __all__ = [
     "PyramidConfig",
     "SolverConfig",
     "SubsetBatch",
+    "RectangularDomain",
+    "AnnularDomain",
+    "BlobDomain",
     "CorrelationResult",
     "correlate",
     "correlate_frames",
+    "correlate_many",
+    "combine_batches",
+    "split_result",
     "make_batch",
     "build_pyramid",
     "FrameRecord",

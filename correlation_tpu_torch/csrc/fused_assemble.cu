@@ -60,6 +60,18 @@
 // trips (idx, then params, then tile and rows), with few blocks an SM to
 // hide it: 10 on the block path and 5 on the warp path, by registers.
 //
+// Shared memory (place()): a subset's tile and pixel rows where both fit,
+// else the tile alone (the rows read from pix in memory), and on the warp
+// path as many subsets a block as then fit.  A tile that alone exceeds
+// the budget (at C = 1 from about 248 x 248: one big blob or annulus
+// sector, or a combined batch that carries such a member's extents) is
+// read straight from the padded image in memory, through L1 and L2, at
+// the image's row pitch (the global-tile path); the rows are staged if
+// they fit alone.  Every path reads the same values in the same order,
+// so the sums do not change, and the launch never fails for lack of
+// shared memory.  The global-tile path is correct, not tuned: a subset
+// of 10^5 pixels still takes a single block on one SM.
+//
 // Not on the tensor cores: the Gram is 72 of the 242 operations a pixel,
 // and no CPU order reproduces a tensor core's internal accumulation, so a
 // tensor-core Gram could not equal the plain version bit for bit.
@@ -83,6 +95,15 @@ constexpr int kWarpLanes = 16;
 constexpr int kWarpSubsets = 4;  // warps a block on the warp path
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 227 * 1024;
+// Slots of the reduction's static shared memory a lane group or warp:
+// the upper triangle of AFFINE's 8 x 8 Gram, the largest model's.
+constexpr int kMaxProducts = 36;
+// Dynamic shared memory a block may give its subsets on each path: what
+// the reduction's slots leave of kMaxSmem.
+constexpr size_t kWarpBudget =
+    kMaxSmem - sizeof(float) * kWarpSubsets * (32 / kWarpLanes) * kMaxProducts;
+constexpr size_t kBlockBudget =
+    kMaxSmem - sizeof(float) * (kBlockThreads / 32) * kMaxProducts;
 // The block path writes the 64 Gram entries one a thread.
 static_assert(kBlockThreads % 32 == 0 && kBlockThreads >= 64,
               "the block path needs whole warps and at least 64 threads");
@@ -253,18 +274,19 @@ __device__ __forceinline__ void stage_tile(float* tile,
 }
 
 // One thread's Gram partial sums over pixels t, t + threads, ... of the
-// subset, channels inner.  `rows` holds the pixel rows at stride p_len
-// (in shared memory, or the subset's slab of pix).
-template <int MODEL, int INTERP, int C, typename RowPtr>
+// subset, channels inner.  `tile` points at the tile's origin, rows
+// `pitch` floats apart (in shared memory, or in the padded image);
+// `rows` holds the pixel rows at stride p_len (in shared memory, or the
+// subset's slab of pix).
+template <int MODEL, int INTERP, int C>
 __device__ __forceinline__ void accumulate(
-    float* acc, const Subset& sub, const float* tile, RowPtr rows,
-    int p_len, int img_h, int img_w, int tile_h, int tile_w, int t,
-    int threads) {
+    float* acc, const Subset& sub, const float* tile, int pitch,
+    const float* rows, int p_len, int img_h, int img_w, int tile_h,
+    int tile_w, int t, int threads) {
   constexpr int NP = num_params(MODEL);
   constexpr int R = NP + 2;  // G rows: H, V, bad
   constexpr int TAPS = INTERP == 2 ? 4 : 2;
   constexpr int HALO = INTERP == 2 ? 1 : 0;
-  const int pitch = tile_pitch(tile_w, C);
   for (int q = t; q < p_len; q += threads) {
     const float x = rows[q], y = rows[p_len + q], m = rows[2 * p_len + q];
     const float dxc = rows[3 * p_len + q], dyc = rows[4 * p_len + q];
@@ -414,15 +436,15 @@ __device__ __forceinline__ float gram_entry(int e, Sum sum) {
 }
 
 // Shared memory of one subset: its pixel rows (when staged), then its
-// tile, each region a multiple of 4 floats so 16-byte copies stay aligned.
+// tile (when staged), each region a multiple of 4 floats so 16-byte
+// copies stay aligned.
 __host__ __device__ inline int rows_floats(int p_len, int c, bool staged) {
   return staged ? ((5 + c) * p_len + 3) / 4 * 4 : 0;
 }
 
-__host__ __device__ inline int subset_floats(int p_len, int c, int tile_h,
-                                             int tile_w, bool staged) {
-  return rows_floats(p_len, c, staged) +
-         (tile_h * tile_pitch(tile_w, c) + 3) / 4 * 4;
+__host__ __device__ inline int tile_floats(int tile_h, int tile_w, int c,
+                                           bool staged) {
+  return staged ? (tile_h * tile_pitch(tile_w, c) + 3) / 4 * 4 : 0;
 }
 
 struct Args {
@@ -435,10 +457,46 @@ struct Args {
   const float* bbox;
   const int* idx;
   int n, num_subsets, tile_h, tile_w;
-  bool stage_rows, vec;
+  bool stage_rows, stage_tile, vec;
   int groups;  // warp path: lane groups of a warp that hold a subset
   float* out;
 };
+
+// Shared-memory floats of one subset under the launcher's choice.
+__host__ __device__ inline int subset_floats(const Args& a, int c) {
+  return rows_floats(a.p_len, c, a.stage_rows) +
+         tile_floats(a.tile_h, a.tile_w, c, a.stage_tile);
+}
+
+// One thread's sums over its p_len pixels, with the tile and the rows
+// each where the launcher put them: shared memory (the staged copies at
+// smem_tile / smem_rows), or the padded image at its own row pitch and
+// the subset's slab of pix.  Four instances of one loop, so that every
+// load names its memory space.
+template <int MODEL, int INTERP, int C>
+__device__ __forceinline__ void accumulate_where(
+    float* acc, const Subset& sub, const Args& a, const float* smem_rows,
+    const float* smem_tile, int p_len, int t, int threads) {
+  auto run = [&](const float* tile, int pitch, const float* rows) {
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, pitch, rows, p_len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, t,
+                                 threads);
+  };
+  const float* rows = a.pix + (size_t)sub.s * 8 * a.p_len;
+  if (a.stage_tile) {
+    const int pitch = tile_pitch(a.tile_w, C);
+    if (a.stage_rows)
+      run(smem_tile, pitch, smem_rows);
+    else
+      run(smem_tile, pitch, rows);
+  } else {
+    const float* tile = a.img + ((size_t)sub.y0 * a.wp + sub.x0) * C;
+    if (a.stage_rows)
+      run(tile, a.wp * C, smem_rows);
+    else
+      run(tile, a.wp * C, rows);
+  }
+}
 
 // Warp path: kWarpLanes lanes per subset.  Lane group g of warp w of
 // block b assembles list position (b * warps + w) * a.groups + g (warps =
@@ -450,6 +508,7 @@ __global__ void __launch_bounds__(32 * kWarpSubsets)
     fused_assemble_warp(const Args a) {
   constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
   constexpr int R = num_params(MODEL) + 2;
+  static_assert(NPROD <= kMaxProducts, "the budgets assume kMaxProducts");
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_sum[kWarpSubsets * 32 / kWarpLanes][NPROD];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -459,9 +518,7 @@ __global__ void __launch_bounds__(32 * kWarpSubsets)
   if (first >= a.n) return;  // no block barrier below
   const bool active = g < a.groups && first + g < a.n;
   const int slot = active ? first + g : a.n - 1;
-  float* rows =
-      smem + (size_t)(active ? region : 0) *
-                 subset_floats(a.p_len, C, a.tile_h, a.tile_w, a.stage_rows);
+  float* rows = smem + (size_t)(active ? region : 0) * subset_floats(a, C);
   float* tile = rows + rows_floats(a.p_len, C, a.stage_rows);
 
   // The rows need only the index: issue them before the origin's loads.
@@ -472,7 +529,7 @@ __global__ void __launch_bounds__(32 * kWarpSubsets)
   const Subset sub = load_subset<MODEL, INTERP>(
       slot, a.idx, a.num_subsets, a.center, a.params, a.bbox, a.hp, a.wp,
       a.tile_h, a.tile_w, l);
-  if (active)
+  if (active && a.stage_tile)
     stage_tile<C>(tile, a.img, a.wp, sub.y0, sub.x0, a.tile_h, a.tile_w, l,
                   kWarpLanes);
   cp_async_commit();
@@ -482,16 +539,8 @@ __global__ void __launch_bounds__(32 * kWarpSubsets)
   float acc[NPROD];
 #pragma unroll
   for (int k = 0; k < NPROD; ++k) acc[k] = 0.f;
-  const int p_len = active ? a.p_len : 0;
-  if (a.stage_rows)
-    accumulate<MODEL, INTERP, C>(acc, sub, tile, (const float*)rows, p_len,
-                                 a.img_h, a.img_w, a.tile_h, a.tile_w, l,
-                                 kWarpLanes);
-  else
-    accumulate<MODEL, INTERP, C>(acc, sub, tile,
-                                 a.pix + (size_t)sub.s * 8 * a.p_len, p_len,
-                                 a.img_h, a.img_w, a.tile_h, a.tile_w, l,
-                                 kWarpLanes);
+  accumulate_where<MODEL, INTERP, C>(acc, sub, a, rows, tile,
+                                     active ? a.p_len : 0, l, kWarpLanes);
   float* sums = s_sum[w * (32 / kWarpLanes) + g];
   group_sums<NPROD, kWarpLanes>(acc, l, sums);
   __syncwarp();
@@ -509,6 +558,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
   constexpr int kWarps = kBlockThreads / 32;
   constexpr int R = num_params(MODEL) + 2;
+  static_assert(NPROD <= kMaxProducts, "the budgets assume kMaxProducts");
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_red[kWarps][NPROD];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -523,8 +573,9 @@ __global__ void __launch_bounds__(kBlockThreads)
   const Subset sub = load_subset<MODEL, INTERP>(
       slot, a.idx, a.num_subsets, a.center, a.params, a.bbox, a.hp, a.wp,
       a.tile_h, a.tile_w, tid);
-  stage_tile<C>(tile, a.img, a.wp, sub.y0, sub.x0, a.tile_h, a.tile_w, tid,
-                kBlockThreads);
+  if (a.stage_tile)
+    stage_tile<C>(tile, a.img, a.wp, sub.y0, sub.x0, a.tile_h, a.tile_w, tid,
+                  kBlockThreads);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -532,15 +583,8 @@ __global__ void __launch_bounds__(kBlockThreads)
   float acc[NPROD];
 #pragma unroll
   for (int k = 0; k < NPROD; ++k) acc[k] = 0.f;
-  if (a.stage_rows)
-    accumulate<MODEL, INTERP, C>(acc, sub, tile, (const float*)smem, a.p_len,
-                                 a.img_h, a.img_w, a.tile_h, a.tile_w, tid,
-                                 kBlockThreads);
-  else
-    accumulate<MODEL, INTERP, C>(acc, sub, tile,
-                                 a.pix + (size_t)sub.s * 8 * a.p_len, a.p_len,
-                                 a.img_h, a.img_w, a.tile_h, a.tile_w, tid,
-                                 kBlockThreads);
+  accumulate_where<MODEL, INTERP, C>(acc, sub, a, smem, tile, a.p_len, tid,
+                                     kBlockThreads);
   group_sums<NPROD>(acc, lane, s_red[w]);
   __syncthreads();
   if (tid < 64) {
@@ -556,7 +600,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 
 // Subsets of `per` bytes that fit in `budget` bytes, at most `most`.
 inline int fitting(size_t budget, size_t per, int most) {
-  return (int)std::min((size_t)most, budget / per);
+  return per ? (int)std::min((size_t)most, budget / per) : most;
 }
 
 template <typename Kernel>
@@ -566,23 +610,29 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Where a subset's tile and rows go on a path with `budget` bytes: the
+// tile in shared memory if it fits alone, the rows beside it (or alone,
+// when the tile is read from memory) if they fit too.  Returns the bytes
+// of one subset.
+inline size_t place(Args& a, int c, size_t budget) {
+  const size_t tile = (size_t)tile_floats(a.tile_h, a.tile_w, c, true) * 4;
+  const size_t rows = (size_t)rows_floats(a.p_len, c, true) * 4;
+  a.stage_tile = tile <= budget;
+  a.stage_rows = (a.stage_tile ? tile : 0) + rows <= budget;
+  return (size_t)subset_floats(a, c) * 4;
+}
+
 template <int MODEL, int INTERP, int C>
-cudaError_t launch_warp(Args a, size_t bare, size_t full,
-                        cudaStream_t stream) {
-  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
-  // Rows staged where a subset with them fits; fewer subsets a block (and
-  // a warp) where all do not fit.  Neither changes the sums.
-  const size_t budget =
-      kMaxSmem - sizeof(float) * kWarpSubsets * (32 / kWarpLanes) * NPROD;
-  a.stage_rows = full <= budget;
-  const size_t per = a.stage_rows ? full : bare;
+cudaError_t launch_warp(Args a, cudaStream_t stream) {
+  // Fewer subsets a block (and a warp) where all do not fit.  Nothing
+  // here changes the sums.
+  const size_t per = place(a, C, kWarpBudget);
   a.groups = 32 / kWarpLanes;
-  int warps = fitting(budget, per * a.groups, kWarpSubsets);
+  int warps = fitting(kWarpBudget, per * a.groups, kWarpSubsets);
   if (warps == 0) {
     a.groups = 1;
-    warps = fitting(budget, per, kWarpSubsets);
+    warps = fitting(kWarpBudget, per, kWarpSubsets);
   }
-  if (warps == 0) return cudaErrorInvalidValue;
   const size_t smem = per * a.groups * warps;
   auto kernel = fused_assemble_warp<MODEL, INTERP, C>;
   cudaError_t e = allow_smem(kernel, smem);
@@ -594,21 +644,11 @@ cudaError_t launch_warp(Args a, size_t bare, size_t full,
 
 template <int MODEL, int INTERP, int C>
 cudaError_t launch(int threads, Args a, cudaStream_t stream) {
-  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
-  const size_t bare = (size_t)subset_floats(a.p_len, C, a.tile_h, a.tile_w,
-                                            false) * 4;
-  const size_t full = (size_t)subset_floats(a.p_len, C, a.tile_h, a.tile_w,
-                                            true) * 4;
   a.vec = a.p_len % 4 == 0 && (uintptr_t)a.pix % 16 == 0;
   if (threads == kWarpLanes)
-    return launch_warp<MODEL, INTERP, C>(a, bare, full, stream);
+    return launch_warp<MODEL, INTERP, C>(a, stream);
   if (threads != kBlockThreads) return cudaErrorInvalidValue;
-  // Rows staged where they fit beside the tile, else read from memory.
-  const size_t budget =
-      kMaxSmem - sizeof(float) * (kBlockThreads / 32) * NPROD;
-  a.stage_rows = full <= budget;
-  const size_t smem = a.stage_rows ? full : bare;
-  if (smem > budget) return cudaErrorInvalidValue;
+  const size_t smem = place(a, C, kBlockBudget);
   auto kernel = fused_assemble_block<MODEL, INTERP, C>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -656,9 +696,10 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
   if (hp < tile_h || wp < tile_w || p_len <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Args a{img,    hp,     wp,  img_h,       img_w,  pix,    p_len,
-               center, params, bbox, idx,        n,      num_subsets,
-               tile_h, tile_w, false, false,     1,      out};
+  const Args a{img,    hp,     wp,     img_h,  img_w, pix,
+               p_len,  center, params, bbox,   idx,   n,
+               num_subsets, tile_h, tile_w, false, false, false,
+               1,      out};
   switch (model) {
     case 0: return dispatch_i<0>(interp, c, threads, a, stream);
     case 1: return dispatch_i<1>(interp, c, threads, a, stream);
@@ -666,6 +707,22 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
     case 3: return dispatch_i<3>(interp, c, threads, a, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The launcher's placement of a subset's tile on the path of `threads`
+// threads a subset: 1 when it is staged in shared memory, 0 when the
+// kernel reads it from the padded image (the global-tile path), -1 for an
+// unsupported path or channel count.
+int fused_assemble_tile_in_shared(int c, int threads, int tile_h,
+                                  int tile_w) {
+  if (c < 1 || c > 3 || (threads != kWarpLanes && threads != kBlockThreads))
+    return -1;
+  Args a{};
+  a.p_len = 1;
+  a.tile_h = tile_h;
+  a.tile_w = tile_w;
+  place(a, c, threads == kWarpLanes ? kWarpBudget : kBlockBudget);
+  return a.stage_tile ? 1 : 0;
 }
 
 const char* fused_assemble_error_string(int code) {

@@ -1,8 +1,9 @@
 """Batched coarse-to-fine Levenberg-Marquardt Gauss-Newton solver (PyTorch).
 
 Port of correlation_tpu/engine.py: the tiled fused assembly, one frame
-pair (correlate) and chained frame pairs in every sequence mode
-(correlate_frames).  The semantics are the JAX engine's:
+pair (correlate), several domains over one pair (correlate_many) and
+chained frame pairs in every sequence mode (correlate_frames).  The
+semantics are the JAX engine's:
   * lambda schedule: start 1e-4, x0.4 on a converging step, x10 on a
     diverging one, clamped to [1e-9, 1e9];
   * the saved-parameter step: the next update is computed from the same
@@ -388,18 +389,49 @@ def correlate(
     device: where to solve (default: resolve_device, the device of
     und_pyramid[0] when it is a tensor).
     """
+    return correlate_many(cfg, und_pyramid, def_pyramid, [subsets],
+                          [params0], device)[0]
+
+
+def correlate_many(
+    cfg: SolverConfig,
+    und_pyramid,
+    def_pyramid,
+    batches,
+    params0_list,
+    device=None,
+) -> list[CorrelationResult]:
+    """Solve several independent domains over one frame pair.
+
+    The pyramids are cast to `device` once; each domain keeps its own tile
+    dims per level (compute_level_statics), so a big blob beside small
+    sectors does not widen their tiles, as combine_batches would; the
+    domains solve one after another.  Each result equals the domain's own
+    correlate call bit for bit.
+
+    batches: domains.SubsetBatch list; params0_list: per-domain [S_i, NP]
+    guesses at level-0 scale; device: as correlate.
+    Returns one CorrelationResult per domain.
+    """
+    if len(batches) != len(params0_list):
+        raise ValueError(
+            f"{len(batches)} batches but {len(params0_list)} guesses"
+        )
     device = resolve_device(cfg, device, und_pyramid[0])
     und = [_as_f32(a, device) for a in und_pyramid]
     dfm = [_as_f32(a, device) for a in def_pyramid]
-    statics = compute_level_statics(cfg, subsets, dfm)
-    batch = subsets.to_device(device)
-    levels = prepare_levels(
-        cfg, und, dfm, batch.xy, batch.mask, batch.center0, statics
-    )
-    return correlate_prepared(
-        cfg, levels, _as_f32(params0, device), batch.center0,
-        batch.mask[0].sum(dim=-1), statics,
-    )
+    out = []
+    for subsets, params0 in zip(batches, params0_list):
+        statics = compute_level_statics(cfg, subsets, dfm)
+        batch = subsets.to_device(device)
+        levels = prepare_levels(
+            cfg, und, dfm, batch.xy, batch.mask, batch.center0, statics
+        )
+        out.append(correlate_prepared(
+            cfg, levels, _as_f32(params0, device), batch.center0,
+            batch.mask[0].sum(dim=-1), statics,
+        ))
+    return out
 
 
 def _uv_of(p: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Carrying problems and state over from the JAX package.
 
 The system has no weights.  What has to cross between correlation_tpu and
-this port is the subset geometry, the solver and sequence configurations
-and the chain state between chunks of a sequence (checkpoint files load in
+this port is the subset geometry (domains and their batches), the solver
+and sequence configurations and the chain state between chunks of a
+sequence (checkpoint files load in
 both packages as they are: utils/checkpoint.py).  These functions take the JAX
 package's values as numpy arrays or plain dicts; none of them imports
 correlation_tpu.
@@ -15,6 +16,7 @@ import torch
 
 from correlation_tpu_torch.config import (
     DeformationDescription,
+    DomainType,
     ErrorMode,
     FittingModel,
     Interpolation,
@@ -22,7 +24,13 @@ from correlation_tpu_torch.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu_torch.domains import SubsetBatch, _level_extents
+from correlation_tpu_torch.domains import (
+    AnnularDomain,
+    BlobDomain,
+    RectangularDomain,
+    SubsetBatch,
+    _level_extents,
+)
 
 # JAX assembly backends; all of them map to the port's "auto", which picks
 # the CUDA kernel or its plain version by the device of the tensors.
@@ -51,6 +59,25 @@ def subset_batch_from_numpy(xy_levels, mask_levels, center0, extents=None):
     return SubsetBatch(
         xs, ms, center0, extents=[(int(y), int(x)) for y, x in extents]
     )
+
+
+_DOMAINS = {
+    DomainType.RECTANGULAR: RectangularDomain,
+    DomainType.ANNULAR: AnnularDomain,
+    DomainType.BLOB: BlobDomain,
+}
+
+
+def domain_from_dict(kind, d: dict):
+    """The port's RectangularDomain / AnnularDomain / BlobDomain from
+    dataclasses.asdict of the JAX domain of that DomainType (`kind`, the
+    enum or its int); the same domain gives the same point lists in both
+    packages."""
+    cls = _DOMAINS[DomainType(int(kind))]
+    d = dict(d)
+    if cls is BlobDomain:
+        d["contour"] = np.array(d["contour"], np.float32).reshape(-1, 2)
+    return cls(**d)
 
 
 def solver_config_from_dict(d: dict) -> SolverConfig:

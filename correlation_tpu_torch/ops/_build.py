@@ -122,6 +122,8 @@ def load_library():
                 i32, i32,  # tile_h, tile_w
                 vp, vp,  # out, stream
             ]
+            lib.fused_assemble_tile_in_shared.restype = i32
+            lib.fused_assemble_tile_in_shared.argtypes = [i32] * 4
             lib.fused_assemble_error_string.restype = ctypes.c_char_p
             lib.fused_assemble_error_string.argtypes = [i32]
             lib.empty_kernel_launch.restype = i32

@@ -30,7 +30,9 @@ LM loop over the still-active subsets gathers nothing.  The kernel has two
 paths, a group of lanes per subset for small subsets and a block per
 subset for large ones; `subset_threads` picks one from the padded pixel
 count, and the plain version sums the Gram in that path's order
-(`kernel_order_sum`), so the two agree bit for bit.
+(`kernel_order_sum`), so the two agree bit for bit.  A tile too big for
+shared memory (`tile_in_shared`) is read from the image in memory, with
+the same sums.
 """
 
 from __future__ import annotations
@@ -70,6 +72,23 @@ def subset_threads(p_len: int) -> int:
     """Threads that assemble one subset of `p_len` padded pixels:
     WARP_LANES (the warp path) or BLOCK_THREADS (the block path)."""
     return WARP_LANES if p_len <= WARP_MAX_PIXELS else BLOCK_THREADS
+
+
+def tile_in_shared(tile_h: int, tile_w: int, channels: int,
+                   threads: int) -> bool:
+    """Whether the kernel's launcher stages a subset's tile in shared
+    memory on the path of `threads` threads a subset (subset_threads).
+    Otherwise the kernel reads the tile from the padded image in memory
+    (the global-tile path), with the same sums.  Asks the built kernel
+    library, so it needs the CUDA toolkit."""
+    from correlation_tpu_torch.ops._build import load_library
+
+    rc = load_library().fused_assemble_tile_in_shared(
+        int(channels), int(threads), int(tile_h), int(tile_w))
+    if rc < 0:
+        raise ValueError(f"no kernel path for {channels} channels and "
+                         f"{threads} threads a subset")
+    return bool(rc)
 
 
 def reset_launches() -> None:

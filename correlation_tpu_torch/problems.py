@@ -7,7 +7,9 @@ v = +1), and a dense grid of 21x21-pixel subsets, solved AFFINE/BICUBIC
 over pyramid levels 2-1-0 at the reference's stopping rule (max 50
 iterations, precision 1e-3).  Arrays equal bench.build_problem's
 (tests/test_torch_domains.py).  sequence_problem moves the texture down
-one row a frame over a sequence of frame pairs.
+one row a frame over a sequence of frame pairs; annular_problem and
+blob_problem track an annulus of sectors and one freehand blob on the
+same frames.
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ from correlation_tpu_torch.config import (
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu_torch.domains import SubsetBatch, make_batch
+from correlation_tpu_torch.domains import (
+    AnnularDomain,
+    BlobDomain,
+    SubsetBatch,
+    annular_batch,
+    blob_batch,
+    make_batch,
+)
 
 
 def _noise_base(h: int, w: int, seed: int, extra_top: int) -> np.ndarray:
@@ -137,13 +146,60 @@ def sequence_problem(
             centers)
 
 
+def _level0_points(batch: SubsetBatch) -> list[np.ndarray]:
+    return [xy[m] for xy, m in zip(batch.xy[0], batch.mask[0])]
+
+
+def annular_problem(
+    num_pairs: int = 32, img_hw: int = 1024, center=(512.0, 480.0),
+    radii=(120.0, 400.0), subdivisions=(8, 64), stop: int = 2,
+) -> tuple[SolverConfig, np.ndarray, list[np.ndarray], AnnularDomain]:
+    """An annulus of radial x angular sectors (by default 8 x 64 = 512
+    sectors of about 890 px between radii 120 and 400) on
+    drifting_sequence frames, AFFINE / BICUBIC at levels 2-1-0.  The
+    sectors' points come from annular_batch, as the command line builds
+    them; run_sequence centers them on their point means (centers=None).
+
+    Returns (cfg, frames [num_pairs + 1, H, W, 1] uint8, point lists,
+    domain)."""
+    dom = AnnularDomain(float(center[0]), float(center[1]), float(radii[0]),
+                        float(radii[1]), *subdivisions)
+    pts = _level0_points(annular_batch(dom, 0))
+    return _solver(stop), drifting_sequence(num_pairs, img_hw), pts, dom
+
+
+def blob_contour(center=(512.0, 480.0), radius: float = 150.0,
+                 vertices: int = 64) -> np.ndarray:
+    """[vertices, 2] float32 non-convex freehand contour: r(theta) =
+    radius (1 + 0.15 cos 5 theta) around `center`."""
+    theta = np.arange(vertices) * (2.0 * np.pi / vertices)
+    r = radius * (1.0 + 0.15 * np.cos(5.0 * theta))
+    return np.stack([center[0] + r * np.cos(theta),
+                     center[1] + r * np.sin(theta)], -1).astype(np.float32)
+
+
+def blob_problem(
+    num_pairs: int = 8, img_hw: int = 1024, center=(512.0, 480.0),
+    radius: float = 150.0, stop: int = 2,
+) -> tuple[SolverConfig, np.ndarray, list[np.ndarray], BlobDomain]:
+    """One freehand blob (blob_contour, triangulated: about 7 x 10^4 px by
+    default, its level-0 tile over 300 x 300) on drifting_sequence frames,
+    AFFINE / BICUBIC at levels 2-1-0.
+
+    Returns (cfg, frames [num_pairs + 1, H, W, 1] uint8, [points], domain)."""
+    dom = BlobDomain(blob_contour(center, radius))
+    pts = _level0_points(blob_batch(dom, 0))
+    return _solver(stop), drifting_sequence(num_pairs, img_hw), pts, dom
+
+
 def assembly_levels(cfg: SolverConfig, batch: SubsetBatch, pyramid: list,
                     device, seed: int = 1) -> dict:
     """{level: the fused_assemble arguments of one assembly of every
     subset} on the deformed frames of `pyramid` (build_pyramid of the
     [2, H, W, 1] pair), at parameters drawn from `seed` around the
     dense-grid problem's motion (u ~ 0.3 px noise, v = 1 / 2^level, small
-    gradients), with subset 7 warped out of the image."""
+    gradients), with subset 7 (where there is one) warped out of the
+    image."""
     import torch
 
     from correlation_tpu_torch.engine import (
@@ -165,7 +221,8 @@ def assembly_levels(cfg: SolverConfig, batch: SubsetBatch, pyramid: list,
         p[:, :2] = rng.normal(0, 0.3, (n, 2))
         p[:, 1] += 1.0 / (1 << lvl)
         p[:, 2:] = rng.normal(0, 0.003, (n, 4))
-        p[7, 0] = 4000.0
+        if n > 7:
+            p[7, 0] = 4000.0
         out[lvl] = (cfg.model, cfg.interpolation, st.tile_h, st.tile_w,
                     st.img_h, st.img_w, lv.def_img, lv.pix, lv.center,
                     torch.as_tensor(p, device=device), lv.bbox)

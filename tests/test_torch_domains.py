@@ -121,3 +121,207 @@ def test_drifting_sequence_moves_one_row_a_frame():
     # Every subset keeps clear of the bicubic border after 8 rows of drift.
     assert max(p[:, 1].max() for p in pts) + 8 < 128 - 2
     np.testing.assert_array_equal(centers, [p.mean(axis=0) for p in pts])
+
+
+# ---- annular and blob domains, multi-ROI batches ---------------------------
+
+import dataclasses  # noqa: E402
+import math  # noqa: E402
+
+from correlation_tpu import native as jnative  # noqa: E402
+from correlation_tpu import polygon as jpoly  # noqa: E402
+from correlation_tpu.config import DomainType  # noqa: E402
+from correlation_tpu.engine import CorrelationResult as JResult  # noqa: E402
+from correlation_tpu_torch import polygon as tpoly  # noqa: E402
+from correlation_tpu_torch.engine import CorrelationResult  # noqa: E402
+from correlation_tpu_torch.interop import domain_from_dict  # noqa: E402
+
+CONTOURS = {
+    "convex": [[5, 5], [25, 6], [28, 20], [15, 28], [4, 18]],
+    "concave": [[4.3, 3.1], [30.2, 4.0], [29.5, 14.7], [15.2, 15.1],
+                [14.6, 33.3], [3.9, 32.8]],
+    "bowtie": [[0, 0], [20, 20], [20, 0], [0, 20]],
+}
+# (r, dr, a, da, cx, cy, as_): a wedge, a whole ring (as_ = 1), and two
+# sectors across theta = 0 (from below and from just under 2 pi).
+SECTORS = [
+    (10.0, 10.0, 0.3, math.pi / 3, 50.0, 50.0, 6),
+    (8.0, 9.5, 0.0, 2 * math.pi, 40.5, 41.0, 1),
+    (12.0, 7.0, -0.4, 0.8, 45.0, 44.0, 8),
+    (12.0, 7.0, 2 * math.pi - 0.3, 0.6, 45.0, 44.0, 8),
+]
+
+
+@pytest.fixture
+def no_native(monkeypatch):
+    """The JAX package on its NumPy generators, the port's only ones."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_load_attempted", True)
+
+
+def _contour(name):
+    return np.array(CONTOURS[name], np.float32)
+
+
+def _points_lists(batch):
+    return [xy[m] for xy, m in zip(batch.xy[0], batch.mask[0])]
+
+
+@pytest.mark.parametrize("gpu", [False, True])
+@pytest.mark.parametrize("sector", range(len(SECTORS)))
+def test_annular_sector_points_match_jax(no_native, sector, gpu):
+    got = tdom.annular_sector_points(*SECTORS[sector], gpu_semantics=gpu)
+    ref = jdom.annular_sector_points(*SECTORS[sector], gpu_semantics=gpu)
+    assert len(got) > 20
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("gpu", [False, True])
+def test_annular_batch_matches_jax(no_native, gpu):
+    args = (60.0, 55.0, 8.0, 30.0, 2, 6)
+    got = tdom.annular_batch(tdom.AnnularDomain(*args), 2, base_angle=0.2,
+                             gpu_semantics=gpu)
+    ref = jdom.annular_batch(jdom.AnnularDomain(*args), 2, base_angle=0.2,
+                             gpu_semantics=gpu)
+    assert got.num_subsets == 12
+    _assert_same_batch(got, ref)
+
+
+@pytest.mark.parametrize("args", [(60.0, 55.0, 8.0, 30.0, 2, 6),
+                                  (40.0, 41.5, 5.0, 20.0, 3, 1)])
+def test_annular_sector_centers_match_jax(args):
+    np.testing.assert_array_equal(
+        tdom.annular_sector_centers(tdom.AnnularDomain(*args)),
+        jdom.annular_sector_centers(jdom.AnnularDomain(*args)))
+
+
+@pytest.mark.parametrize("name", sorted(CONTOURS))
+def test_polygon_matches_jax(name):
+    got, ref = tpoly.Polygon(_contour(name)), jpoly.Polygon(_contour(name))
+    assert got.error == ref.error == (name == "bowtie")
+    assert got.triangles == ref.triangles
+    pts = got.inside_points()
+    np.testing.assert_array_equal(pts, ref.inside_points())
+    assert len(pts) > 100 or got.error
+
+
+@pytest.mark.parametrize("triangulate", [True, False])
+@pytest.mark.parametrize("name", ["convex", "concave"])
+def test_blob_batch_matches_jax(no_native, name, triangulate):
+    got = tdom.blob_batch(tdom.BlobDomain(_contour(name)), 2,
+                          use_triangulation=triangulate)
+    ref = jdom.blob_batch(jdom.BlobDomain(_contour(name)), 2,
+                          use_triangulation=triangulate)
+    _assert_same_batch(got, ref)
+    dom = tdom.BlobDomain(_contour(name))
+    assert (dom.x_center, dom.y_center) == \
+        (jdom.BlobDomain(_contour(name)).x_center,
+         jdom.BlobDomain(_contour(name)).y_center)
+
+
+def test_blob_batch_rejects_bad_domains_as_jax():
+    for mod in (tdom, jdom):
+        with pytest.raises(ValueError, match="self-intersecting"):
+            mod.blob_batch(mod.BlobDomain(_contour("bowtie")), 1)
+        tiny = np.array([[3.2, 3.2], [3.7, 3.3], [3.5, 3.8]], np.float32)
+        with pytest.raises(ValueError, match="no pixels"):
+            mod.blob_batch(mod.BlobDomain(tiny), 1)
+        with pytest.raises(ValueError, match="no pixels"):
+            mod.blob_batch(mod.BlobDomain(tiny), 1, use_triangulation=False)
+
+
+def test_rectangular_contour_matches_jax():
+    for args in ((10, 12, 4, 3), (7.5, 9.0, 2, 6)):
+        np.testing.assert_array_equal(tdom.rectangular_contour(*args),
+                                      jdom.rectangular_contour(*args))
+
+
+def _three_domains(mod):
+    rect = mod.rectangular_batch(mod.RectangularDomain(24, 24, 72, 72, 2, 2),
+                                 2)
+    ann = mod.annular_batch(mod.AnnularDomain(110, 60, 10, 28, 1, 4), 2)
+    blob = mod.blob_batch(mod.BlobDomain(_contour("concave") * 1.5 + 30.0),
+                          2)
+    return [rect, ann, blob]
+
+
+def test_combine_batches_matches_jax(no_native):
+    got, counts = tdom.combine_batches(_three_domains(tdom))
+    ref, ref_counts = jdom.combine_batches(_three_domains(jdom))
+    assert counts == ref_counts == [4, 4, 1]
+    _assert_same_batch(got, ref)
+    with pytest.raises(ValueError):
+        tdom.combine_batches([])
+    with pytest.raises(ValueError):
+        tdom.combine_batches([_three_domains(tdom)[0],
+                              tdom.make_batch(_ragged_lists(2, 0), None, 1)])
+
+
+def test_split_result_matches_jax():
+    rng = np.random.default_rng(4)
+    s = 9
+    fields = dict(
+        params=rng.normal(size=(s, 2)).astype(np.float32),
+        chi=rng.random(s).astype(np.float32),
+        iterations=rng.integers(0, 9, s).astype(np.int32),
+        error=rng.integers(0, 4, s).astype(np.int32),
+        center=rng.normal(size=(s, 2)).astype(np.float32),
+        n_points=rng.integers(1, 99, s).astype(np.int32),
+    )
+    counts = [4, 4, 1]
+    got = tdom.split_result(
+        CorrelationResult(**{k: torch.as_tensor(v)
+                             for k, v in fields.items()}), counts)
+    ref = jdom.split_result(JResult(**fields), counts)
+    assert len(got) == len(ref) == 3
+    for a, b in zip(got, ref):
+        assert isinstance(a, CorrelationResult)
+        for k in fields:
+            np.testing.assert_array_equal(getattr(a, k).numpy(),
+                                          getattr(b, k))
+
+
+@pytest.mark.parametrize("kind", list(DomainType), ids=lambda k: k.name)
+def test_domain_from_dict_gives_the_same_points(no_native, kind):
+    jdoms = {
+        DomainType.RECTANGULAR: jdom.RectangularDomain(10, 20, 60.5, 71, 2, 3),
+        DomainType.ANNULAR: jdom.AnnularDomain(50, 52, 6, 24, 2, 4),
+        DomainType.BLOB: jdom.BlobDomain(_contour("concave")),
+    }
+    jd = jdoms[kind]
+    td = domain_from_dict(int(kind), dataclasses.asdict(jd))
+    build = {
+        DomainType.RECTANGULAR: "rectangular_batch",
+        DomainType.ANNULAR: "annular_batch",
+        DomainType.BLOB: "blob_batch",
+    }[kind]
+    _assert_same_batch(getattr(tdom, build)(td, 2),
+                       getattr(jdom, build)(jd, 2))
+
+
+def test_full_size_annulus_matches_jax(no_native):
+    """annular_problem's 8 x 64 sectors (r 120-400 around (512, 480)), the
+    port against the JAX package, in both semantics."""
+    args = (512.0, 480.0, 120.0, 400.0, 8, 64)
+    for gpu in (False, True):
+        _assert_same_batch(
+            tdom.annular_batch(tdom.AnnularDomain(*args), 2,
+                               gpu_semantics=gpu),
+            jdom.annular_batch(jdom.AnnularDomain(*args), 2,
+                               gpu_semantics=gpu))
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("name", ["convex", "concave"])
+def test_crossing_matches_jax_every_call(no_native, name, scale):
+    """The crossing rasterizer gives the JAX package's points in its
+    raster order (y-major, then x), the same on every call."""
+    contour = _contour(name) * scale
+    calls = [tdom.blob_inside_points_crossing(contour) for _ in range(3)]
+    for pts in calls[1:]:
+        np.testing.assert_array_equal(pts, calls[0])
+    np.testing.assert_array_equal(
+        calls[0], jdom.blob_inside_points_crossing(contour))
+    assert len(calls[0]) > 300
+    order = np.lexsort((calls[0][:, 0], calls[0][:, 1]))
+    np.testing.assert_array_equal(order, np.arange(len(order)))

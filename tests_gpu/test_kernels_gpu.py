@@ -182,16 +182,69 @@ def test_rows_read_from_memory_beside_a_big_tile(dev, path):
     assert got[0, 7, 7] > 0
 
 
+# The global-tile path: tiles that do not fit in shared memory even alone
+# (the kernel reads them from the padded image in memory).
+GLOBAL_TILES = [248, 320, 1024]
+GLOBAL_CASES = [(m, i, 1) for m, i in GRID] + [
+    (FittingModel.AFFINE, Interpolation.BICUBIC, 3)]
+
+
+def test_tile_in_shared_is_the_launchers_rule(dev):
+    """The launcher's placement: at C = 1 a 240 x 240 tile still fits on
+    the block path and 248 x 248 does not; on each path and channel count
+    a widening tile leaves shared memory once; an unsupported path
+    raises."""
+    block, warp = v2.BLOCK_THREADS, v2.WARP_LANES
+    assert v2.tile_in_shared(240, 240, 1, block)
+    assert not v2.tile_in_shared(248, 248, 1, block)
+    assert v2.tile_in_shared(32, 32, 3, warp)
+    assert not v2.tile_in_shared(320, 320, 3, warp)
+    for c in (1, 2, 3):
+        for threads in (block, warp):
+            fits = [v2.tile_in_shared(240, w, c, threads)
+                    for w in range(8, 1030, 8)]
+            assert fits[0] and not fits[-1]
+            assert fits == sorted(fits, reverse=True)  # one switch
+    with pytest.raises(ValueError):
+        v2.tile_in_shared(64, 64, 1, 32)
+    with pytest.raises(ValueError):
+        v2.tile_in_shared(64, 64, 4, block)
+
+
+@pytest.mark.parametrize("tile", GLOBAL_TILES)
 @pytest.mark.parametrize("path", sorted(SIDES))
-def test_index_out_of_range_stops_kernel(dev, path):
-    # The kernel checks each index against S and traps, which leaves the
-    # CUDA context unusable: run it in a process of its own.
-    code = (
+@pytest.mark.parametrize("case", range(len(GLOBAL_CASES)))
+def test_global_tile_equals_plain(dev, case, path, tile):
+    """Every model and interpolation at C = 1, and C = 3 at one, on both
+    paths: the whole list, 1-9 subsets of it and an index list with
+    repeats, bit for bit with the plain version, run to run."""
+    model, interp, channels = GLOBAL_CASES[case]
+    args = _args(model, interp, channels, dev, s=9, side=SIDES[path],
+                 tile=(tile, tile), hw=(tile + 8, tile + 8))
+    threads = v2.subset_threads(args[7].shape[2])
+    assert (threads == v2.BLOCK_THREADS) == (path == "block")
+    assert not v2.tile_in_shared(tile, tile, channels, threads)
+    v2.reset_launches()
+    got = _assert_equal_plain(args)
+    assert torch.equal(got, v2.fused_assemble(*args))
+    assert v2.LAUNCHES == 2
+    num_p = NUM_PARAMS[model]
+    assert got[0, num_p + 1, num_p + 1] > 0
+    for k in range(1, 10):
+        _assert_equal_plain(args, torch.arange(k, dtype=torch.int32,
+                                               device=dev))
+    idx = torch.tensor([5, 0, 8, 5, 5, 2], dtype=torch.int32, device=dev)
+    assert torch.equal(_assert_equal_plain(args, idx), got[idx.long()])
+
+
+def _trap_code(side, tile=None, hw=(120, 150)):
+    """A script that assembles a valid index and then one outside [0, S)."""
+    return (
         "import torch, tests_gpu.test_kernels_gpu as t\n"
         "from correlation_tpu_torch.ops import assemble_v2 as v2\n"
         "dev = torch.device('cuda')\n"
         "args = t._args(t.FittingModel.AFFINE, t.Interpolation.BICUBIC, 1,"
-        f" dev, side={SIDES[path]})\n"
+        f" dev, side={side}, tile={tile}, hw={hw})\n"
         "ok = torch.tensor([39], dtype=torch.int32, device=dev)\n"
         "v2.fused_assemble(*args, ok); torch.cuda.synchronize()\n"
         "print('valid index ok', flush=True)\n"
@@ -199,12 +252,28 @@ def test_index_out_of_range_stops_kernel(dev, path):
         "v2.fused_assemble(*args, bad); torch.cuda.synchronize()\n"
         "print('out-of-range index passed', flush=True)\n"
     )
+
+
+def _assert_traps(code):
+    # The kernel checks each index against S and traps, which leaves the
+    # CUDA context unusable: run it in a process of its own.
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert "valid index ok" in proc.stdout, proc.stderr
     assert "out-of-range index passed" not in proc.stdout
     assert proc.returncode != 0
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_index_out_of_range_stops_kernel(dev, path):
+    _assert_traps(_trap_code(SIDES[path]))
+
+
+@pytest.mark.parametrize("path", sorted(SIDES))
+def test_index_out_of_range_stops_kernel_on_global_tile(dev, path):
+    assert not v2.tile_in_shared(320, 320, 1, v2.WARP_LANES)
+    _assert_traps(_trap_code(SIDES[path], (320, 320), (328, 328)))
 
 
 def test_backend_must_match_device(dev):
@@ -241,3 +310,34 @@ def test_correlate_on_card_equals_cpu(dev):
     np.testing.assert_allclose(gpu.params.cpu().numpy(), cpu.params.numpy(),
                                atol=1e-4)
     np.testing.assert_array_equal(gpu.error.cpu().numpy(), cpu.error.numpy())
+
+
+def test_large_rectangle_on_card_equals_cpu(dev):
+    """One 299 x 299 sector: its level-0 tile (320 x 320) exceeds shared
+    memory, so the kernel reads it from memory; the solve equals the
+    CPU's, bit for bit."""
+    from correlation_tpu_torch.domains import (
+        RectangularDomain,
+        rectangular_batch,
+    )
+
+    img = speckle(384, 384, 7)
+    dfm = speckle(384, 384, 7, row_shift=1)
+    und_pyr = build_pyramid(torch.as_tensor(img[..., None]), 1)
+    def_pyr = build_pyramid(torch.as_tensor(dfm[..., None]), 1)
+    batch = rectangular_batch(RectangularDomain(40, 40, 340, 340), 1)
+    cfg = SolverConfig(pyramid=PyramidConfig(0, 1, 1))
+    th, tw = v2.choose_tile(*batch.extents[0], 384, 384)
+    p_len = batch.xy[0].shape[1]
+    assert not v2.tile_in_shared(th, tw, 1, v2.subset_threads(p_len))
+    p0 = np.zeros((1, 6), np.float32)
+    cpu = correlate(cfg, und_pyr, def_pyr, batch, p0, device="cpu")
+    v2.reset_launches()
+    gpu = correlate(cfg, und_pyr, def_pyr, batch, p0, device=dev)
+    assert v2.LAUNCHES_BY_SHAPE[(p_len, th, tw)][0] > 0
+    for name in ("params", "chi", "iterations", "error"):
+        np.testing.assert_array_equal(getattr(gpu, name).cpu().numpy(),
+                                      getattr(cpu, name).numpy(), name)
+    assert int(gpu.error[0]) == 0
+    np.testing.assert_allclose(gpu.params[0, :2].cpu().numpy(), [0, 1],
+                               atol=0.01)

@@ -7,7 +7,11 @@ import torch
 from correlation_tpu_torch import SequenceConfig, run_sequence
 from correlation_tpu_torch.config import DeformationDescription, ReferenceImage
 from correlation_tpu_torch.ops import assemble_v2 as v2
-from correlation_tpu_torch.problems import sequence_problem
+from correlation_tpu_torch.problems import (
+    annular_problem,
+    blob_problem,
+    sequence_problem,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -32,3 +36,50 @@ def test_sequence_on_card_equals_cpu(deformation):
         np.testing.assert_array_equal(a.error, b.error)
         np.testing.assert_allclose(np.median(a.params[:, :2], axis=0),
                                    [0.0, 1.0], atol=0.02)
+
+
+def _assert_card_equals_cpu(frames, pts, scfg, expect):
+    """run_sequence on the card equals the CPU's, and each pair recovers
+    `expect(t)`, the (u, v) of pair t."""
+    before = v2.LAUNCHES
+    card = run_sequence(list(frames), pts, scfg, centers=None, device="cuda")
+    assert v2.LAUNCHES > before
+    cpu = run_sequence(list(frames), pts, scfg, centers=None, device="cpu")
+    assert len(card) == len(cpu) == len(frames) - 1
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        np.testing.assert_array_equal(a.params, b.params)
+        np.testing.assert_array_equal(a.iterations, b.iterations)
+        np.testing.assert_array_equal(a.error, b.error)
+        np.testing.assert_allclose(np.median(a.params[:, :2], axis=0),
+                                   expect(t), atol=0.02)
+
+
+@pytest.mark.parametrize("lagrangian", [False, True],
+                         ids=["eulerian-first", "lagrangian-previous"])
+def test_annular_sequence_on_card_equals_cpu(lagrangian):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    cfg, frames, pts, _ = annular_problem(3, img_hw=256, center=(128, 120),
+                                          radii=(30, 100),
+                                          subdivisions=(2, 8))
+    scfg = SequenceConfig(solver=cfg, frame_chunk=3)
+    if lagrangian:
+        scfg = SequenceConfig(solver=cfg, frame_chunk=3,
+                              deformation=DeformationDescription.LAGRANGIAN,
+                              reference=ReferenceImage.PREVIOUS)
+    _assert_card_equals_cpu(
+        frames, pts, scfg,
+        lambda t: [0.0, 1.0] if lagrangian else [0.0, t + 1.0])
+
+
+def test_blob_sequence_on_global_tile_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    cfg, frames, pts, _ = blob_problem(2, img_hw=384, center=(192, 184),
+                                       radius=125)
+    v2.reset_launches()
+    _assert_card_equals_cpu(frames, pts, SequenceConfig(solver=cfg),
+                            lambda t: [0.0, t + 1.0])
+    big = [k for k, (n, _) in v2.LAUNCHES_BY_SHAPE.items() if n
+           and not v2.tile_in_shared(k[1], k[2], 1, v2.subset_threads(k[0]))]
+    assert big
