@@ -11,9 +11,10 @@ Phases, one informational line each:
      version on the card, bit for bit, over the model x interpolation x
      channel grid and at the dense-grid problem's level 0/1/2 shapes
      (4096 subsets; the block path at level 0, the warp path at 1-2),
-     with one subset warped out of the image, and at 248x248 and 320x320
+     with one subset warped out of the image, at 248x248 and 320x320
      tiles that shared memory cannot hold (the global-tile path, both
-     paths, C = 1 and 3);
+     paths, C = 1 and 3), and with 49x49 subsets (the split path: 5 spans,
+     the last ragged; C = 1 and 3);
   4. pyramid: the pyramid built on the card equals the CPU pyramid;
   5. slice: correlate_frames on the dense-grid problem (4096 21x21
      subsets, AFFINE/BICUBIC, levels 2-1-0, 64 chained frame pairs) on
@@ -46,19 +47,23 @@ Phases, one informational line each:
   9. domains, on the same drifting frames, AFFINE/BICUBIC, levels 2-1-0:
      an annulus of 8 x 64 = 512 sectors (annular_problem) over 32 pairs,
      Eulerian-First and Lagrangian-Previous, and a freehand blob of about
-     7 x 10^4 px (blob_problem), whose level-0 tile is read from memory
-     (the global-tile path), over 8 pairs, each checked as in phase 8
-     (the CPU on the outermost ring's 64 sectors, or the blob); the
-     blob's global-tile assembly timed as in phase 6; then, on pair
-     (0, 1), a 16 x 16 grid of 21x21 rectangles, the annulus and the
-     blob: correlate_many against three correlate calls (bit for bit) and
-     the CPU, and combine_batches + split_result against the separate
-     solves (error codes identical, params over 5e-5 named, and each
-     domain padded to the combined lengths equal to its share bit for
-     bit).
-Then a JSON line with the kernel records (K1 at each level and on the
-global-tile path, K2, the five stages): launches on the main path (K1:
-its level's, with the mean subsets a launch and the threads a subset),
+     7 x 10^4 px (blob_problem), split over several blocks at every
+     level (at level 0 its tile exceeds shared memory), over 8 pairs,
+     each checked as in phase 8 (the CPU on the outermost ring's 64
+     sectors, or the blob); the blob's assembly at each level timed as in
+     phase 6, and again in one block a subset (chunk = p_len, through
+     experiments.design_sweep.k1_design), both bit for bit with the
+     plain version of their order; then, on pair (0, 1),
+     a 16 x 16 grid of 21x21 rectangles, the annulus and the blob:
+     correlate_many against three correlate calls (bit for bit) and the
+     CPU, and combine_batches + split_result against the separate solves
+     (error codes identical, params over 5e-5 named, and each domain
+     padded to the combined lengths equal to its share bit for bit), with
+     one assembly of the combined batch at each level timed both ways.
+Then a JSON line with the kernel records (K1 at each level of the dense
+grid and of the blob, K2, the five stages): launches on the main path
+(K1: its level's, with the mean subsets a launch and the threads a
+subset),
 agreement with the plain version, the kernel's, the plain version's and
 the library call's times, and the kernel's bound, the least time the card
 could take for the same work (bound()); and, last, the JSON line
@@ -141,10 +146,19 @@ def gram_check(got, ref, num_p, what):
 
 def tile_memory(v2, p_len, tile_h, tile_w, channels):
     """"shared" or "global": where K1 holds a subset's tile at this shape
-    (assemble_v2.tile_in_shared on the path of subset_threads(p_len))."""
+    (assemble_v2.tile_in_shared on the path of subset_threads(p_len) and
+    subset_chunks(p_len))."""
     return ("shared" if v2.tile_in_shared(tile_h, tile_w, channels,
-                                          v2.subset_threads(p_len))
+                                          v2.subset_threads(p_len),
+                                          v2.subset_chunks(p_len))
             else "global")
+
+
+def k1_path(v2, p_len):
+    """K1's path for p_len padded pixels, in words."""
+    spans = v2.subset_chunks(p_len)
+    return (f"{v2.subset_threads(p_len)} threads"
+            + (f", {spans} spans of {v2.CHUNK_PIXELS}" if spans > 1 else ""))
 
 
 def square_cases(torch, v2, cfgmod, speckle, dev, h, w, side, tile,
@@ -169,7 +183,7 @@ def square_cases(torch, v2, cfgmod, speckle, dev, h, w, side, tile,
     img = np.stack([img1 * f for f in (1.0, 0.8, 0.6)[:channels]], -1)
     und_w = img[xy[..., 1].astype(int), xy[..., 0].astype(int)]
     th, tw = tile or v2.choose_tile(side - 1, side - 1, h, -(-w // 8) * 8)
-    path = (f"{side}x{side}, {v2.subset_threads(side * side)} threads, tile "
+    path = (f"{side}x{side}, {k1_path(v2, side * side)}, tile "
             f"{th}x{tw} in {tile_memory(v2, side * side, th, tw, channels)} "
             f"memory")
 
@@ -196,7 +210,10 @@ def grid_cases(torch, v2, cfgmod, speckle, dev):
     C in {1, 3}, five 11x11 subsets on a 96x130 texture (the warp path),
     and again with 23x23 subsets (the block path); then the global-tile
     path, AFFINE / BICUBIC: the block path at 248x248 and 320x320 tiles,
-    C = 1 and 3, and the warp path at a 320x320 tile."""
+    C = 1 and 3, and the warp path at a 320x320 tile; then the split
+    path: five 49x49 subsets (2401 padded pixels, 5 spans, the last
+    ragged) on a 160x200 texture, the four pairs at C = 1 and AFFINE /
+    BICUBIC at C = 3."""
     import numpy as np
 
     rng = np.random.default_rng(9)
@@ -214,6 +231,10 @@ def grid_cases(torch, v2, cfgmod, speckle, dev):
         yield from square_cases(torch, v2, cfgmod, speckle, dev, tile + 8,
                                 tile + 8, side, (tile, tile), channels,
                                 grid[:1], rng)
+    check(v2.subset_chunks(49 * 49) == 5, "49x49 subsets are not split")
+    for channels, pairs in ((1, grid), (3, grid[:1])):
+        yield from square_cases(torch, v2, cfgmod, speckle, dev, 160, 200,
+                                49, None, channels, pairs, rng)
 
 
 def experiments_phase(torch, dev, smi):
@@ -488,7 +509,7 @@ def domain_run(torch, dev, smi, v2, name, cfg, scfg, frames, pts, expect,
           f"{name}: {mismatch} iteration/error mismatches card vs CPU")
     levels = ", ".join(
         f"L{lvl} {k[0]} px tile {k[1]}x{k[2]} ({tile_memory(v2, *k, 1)}, "
-        f"{v2.subset_threads(k[0])} threads): {by_shape[k][0]} launches"
+        f"{k1_path(v2, k[0])}): {by_shape[k][0]} launches"
         for lvl, k in sorted(shapes.items()))
     print(f"domains {name} ({smi}): {n} sectors x {pairs} pairs in "
           f"{wall:.3f} s = {n * pairs / wall:.1f} solves/s over the whole "
@@ -529,7 +550,11 @@ def multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom, grid=16):
         blob_batch,
         rectangular_batch,
     )
+    from correlation_tpu_torch.experiments.design_sweep import k1_design
+    from correlation_tpu_torch.ops import _build
     from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.problems import assembly_levels
+    from correlation_tpu_torch.utils.profiling import graph_ms
 
     stop = cfg.pyramid.stop
     names = ["rectangles", "annulus", "blob"]
@@ -588,6 +613,19 @@ def multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom, grid=16):
                              np.float32), device=dev)
     torch.cuda.synchronize()
     combined_s = time.perf_counter() - t0
+    # One assembly of the combined batch at each level, on the split path
+    # (every subset padded to the blob's length) and in one block a subset.
+    one_block = k1_design(_build.load_library(), "K1 one block",
+                          v2.BLOCK_THREADS)
+    asm = []
+    for lvl, args in sorted(assembly_levels(cfg, combined, pyr, dev).items()):
+        p_len = args[7].shape[2]
+        split_ms = graph_ms(lambda: v2.fused_assemble(*args), 5)
+        one_ms = graph_ms(lambda: one_block(*args), 5)
+        asm.append(f"L{lvl} {p_len} px ({k1_path(v2, p_len)}) "
+                   f"{split_ms:.4f} ms, one block a subset {one_ms:.4f} ms")
+        del args
+    torch.cuda.empty_cache()
     over = []
     worst = 0.0
     lengths = [a.shape[1] for a in combined.xy]
@@ -616,7 +654,8 @@ def multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom, grid=16):
           f"calls bit for bit; card vs CPU plain ({total} subsets): max "
           f"|dp| {p_diff:.3e}, {mismatch} iteration/error mismatches; "
           f"combined batch (L0 {combined.xy[0].shape[1]} px a subset) "
-          f"{combined_s:.3f} s, max |dp| against the separate solves "
+          f"{combined_s:.3f} s (one assembly of it: {'; '.join(asm)}; "
+          f"graph), max |dp| against the separate solves "
           f"{worst:.3e}, error codes identical; over 5e-5: "
           f"{'; '.join(over) or 'none'}; why: each domain solved alone but "
           f"padded to the combined lengths {lengths} (so on the combined "
@@ -651,6 +690,8 @@ def domains_phase(torch, dev, smi, v2):
         ReferenceImage,
     )
     from correlation_tpu_torch.domains import make_batch
+    from correlation_tpu_torch.experiments.design_sweep import k1_design
+    from correlation_tpu_torch.ops import _build
     from correlation_tpu_torch.ops.pyramid import build_pyramid
     from correlation_tpu_torch.problems import (
         annular_problem,
@@ -679,63 +720,82 @@ def domains_phase(torch, dev, smi, v2):
         torch, dev, smi, v2, "blob eulerian-first", bcfg,
         SequenceConfig(solver=bcfg, frame_chunk=BLOB_PAIRS), bframes, bpts,
         lambda t: np.array([0.0, t + 1.0]), 1)
-    key = shapes[0]
-    check(tile_memory(v2, *key, 1) == "global",
-          f"the blob's level-0 tile {key[1:]} fits in shared memory")
-    check(by_shape[key][0] > 0, "the global-tile path was never launched")
+    check(tile_memory(v2, *shapes[0], 1) == "global",
+          f"the blob's level-0 tile {shapes[0][1:]} fits in shared memory")
 
-    # The global-tile assembly on its own: the blob at level 0.
+    # The blob's assemblies on their own, every level on the split path:
+    # timed as the kernel runs them and with one block a subset (chunk =
+    # p_len, the design before the split path), each bit for bit with the
+    # plain version of its order.
+    one_block = k1_design(_build.load_library(), "K1 one block",
+                          v2.BLOCK_THREADS)
     batch = make_batch(bpts, None, bcfg.pyramid.stop)
     pyr = build_pyramid(torch.as_tensor(bframes[:2], device=dev).float(),
                         bcfg.pyramid.stop)
-    args = assembly_levels(bcfg, batch, pyr, dev)[0]
-    check(tuple([args[7].shape[2], *args[2:4]]) == key,
-          "the timed shape is not the run's level-0 shape")
-    got = v2.fused_assemble(*args)
-    ref = v2.fused_assemble_reference(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(got, ref), "the global-tile assembly differs from its "
-          "plain version")
-    kernel_ms = graph_ms(lambda: v2.fused_assemble(*args), 20)
-    plain_ms = cuda_time_ms(lambda: v2.fused_assemble_reference(*args), 5)
-    img, pix, center, params, bbox = args[6:]
-    n, p_len = pix.shape[0], pix.shape[2]
-    # Each subset reads its own tile once (from L2), not the whole image.
-    tile_bytes = min(n * key[1] * key[2] * img.shape[2] * 4, nbytes(img))
-    moved = (tile_bytes + nbytes(center, params, bbox)
-             + n * (5 + img.shape[2]) * p_len * 4 + n * 64 * 4)
-    ops = n * p_len * K1_OPS_PER_PIXEL
-    bound_ms, bound_by = bound(moved, ops, "fp32")
-    print(f"time ({smi}): global-tile assembly (the blob at L0, {n} subset "
-          f"of {p_len} px, tile {key[1]}x{key[2]} read from memory, "
-          f"{v2.subset_threads(p_len)} threads) kernel {kernel_ms:.4f} ms "
-          f"(graph), plain {plain_ms:.4f} ms; bound {moved / 1e6:.3f} MB "
-          f"(tiles {tile_bytes / 1e6:.3f} MB), "
-          f"{ops / 1e9:.4f} GFLOP -> {bound_ms:.4f} ms ({bound_by}), kernel "
-          f"at {bound_ms / kernel_ms:.1%} of it; bit-identical to the plain "
-          f"version")
-    launches, subsets = by_shape[key]
-    record = {
-        "name": "fused_assemble_L0_global_tile",
-        "route": "cuda",
-        "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
-        "replaces": "correlation_tpu/ops/assemble_v2.py:964",
-        "launches": launches,  # the blob sequence's, at this shape
-        "subsets_per_launch": subsets / launches,
-        "threads_per_subset": v2.subset_threads(p_len),
-        "max_abs_err": float((got - ref).abs().max()),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_call": None,
-        "library_ms": None,
-    }
-    del got, ref, args, pyr
+    records = []
+    for lvl, args in sorted(assembly_levels(bcfg, batch, pyr, dev).items()):
+        key = shapes[lvl]
+        check(tuple([args[7].shape[2], *args[2:4]]) == key,
+              f"the timed shape is not the run's level-{lvl} shape")
+        check(by_shape[key][0] > 0, f"the blob's L{lvl} kernel never ran")
+        img, pix, center, params, bbox = args[6:]
+        n, p_len = pix.shape[0], pix.shape[2]
+        check(v2.subset_chunks(p_len) > 1, f"the blob's L{lvl} is not split")
+        got = v2.fused_assemble(*args)
+        ref = v2.fused_assemble_reference(*args)
+        one = one_block(*args)
+        one_ref = v2.fused_assemble_reference(*args, chunk=p_len)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"the blob's L{lvl} assembly differs "
+              f"from its plain version")
+        check(torch.equal(one, one_ref), f"the blob's L{lvl} assembly in one "
+              f"block differs from the plain version of its order")
+        kernel_ms = graph_ms(lambda: v2.fused_assemble(*args), 20)
+        one_ms = graph_ms(lambda: one_block(*args), 20)
+        plain_ms = cuda_time_ms(lambda: v2.fused_assemble_reference(*args),
+                                5)
+        # Each subset reads its own tile once (from L2), not the whole
+        # image; the partial sums are the design's own traffic.
+        tile_bytes = min(n * key[1] * key[2] * img.shape[2] * 4, nbytes(img))
+        moved = (tile_bytes + nbytes(center, params, bbox)
+                 + n * (5 + img.shape[2]) * p_len * 4 + n * 64 * 4)
+        ops = n * p_len * K1_OPS_PER_PIXEL
+        bound_ms, bound_by = bound(moved, ops, "fp32")
+        print(f"time ({smi}): the blob's L{lvl} assembly ({n} subset of "
+              f"{p_len} px, tile {key[1]}x{key[2]}, {k1_path(v2, p_len)}) "
+              f"kernel {kernel_ms:.4f} ms (graph), one block a subset "
+              f"{one_ms:.4f} ms ({one_ms / kernel_ms:.1f}x), plain "
+              f"{plain_ms:.4f} ms; bound {moved / 1e6:.3f} MB (tiles "
+              f"{tile_bytes / 1e6:.3f} MB), {ops / 1e9:.4f} GFLOP -> "
+              f"{bound_ms:.5f} ms ({bound_by}), kernel at "
+              f"{bound_ms / kernel_ms:.2%} of it; both bit-identical to the "
+              f"plain version of their order")
+        launches, subsets = by_shape[key]
+        records.append({
+            "name": ("fused_assemble_L0_global_tile" if lvl == 0
+                     else f"fused_assemble_blob_L{lvl}"),
+            "route": "cuda",
+            "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
+            "replaces": "correlation_tpu/ops/assemble_v2.py:964",
+            "launches": launches,  # the blob sequence's, at this shape
+            "subsets_per_launch": subsets / launches,
+            "threads_per_subset": v2.subset_threads(p_len),
+            "spans": v2.subset_chunks(p_len),
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": kernel_ms,
+            "one_block_ms": one_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_call": None,
+            "library_ms": None,
+        })
+        del got, ref, one, one_ref, args
+    del pyr
     torch.cuda.empty_cache()
 
     multi_roi(torch, dev, smi, v2, cfg, frames, ann_dom, blob_dom)
-    return record
+    return records
 
 
 def main() -> int:
@@ -938,7 +998,7 @@ def main() -> int:
     sequence_phase(torch, dev, smi, v2)
 
     # ---- 9. annular and blob domains, multi-ROI ----------------------------
-    kernels.append(domains_phase(torch, dev, smi, v2))
+    kernels += domains_phase(torch, dev, smi, v2)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@
 // H, V = und - w and `bad`, and write the 8x8 Gram of G = [H | V | bad]
 // (A at [i][j], b at [i][NP], chi at [NP][NP], bad count at [NP+1][NP+1]).
 //
-// Two paths, chosen by the caller from the padded pixel count alone
-// (assemble_v2.subset_threads, which the plain version follows too, since
-// the path fixes the order of the Gram sums):
+// Three paths, chosen from the padded pixel count alone
+// (assemble_v2.subset_threads and subset_chunks, which the plain version
+// follows too, since the path fixes the order of the Gram sums):
 //
 //   warp path (threads == kWarpLanes, 16): a group of 16 lanes per
 //       subset, two subsets a warp, kWarpSubsets (4) warps a block, each
@@ -21,6 +21,15 @@
 //       subset keeps all 4096 bench subsets in one wave.
 //   block path (threads == kBlockThreads, 64): a block per subset, for
 //       large subsets (level 0: 441 live pixels).
+//   split path (more than kChunkMin, 2048, padded pixels: a blob, an
+//       annulus of few sectors, one large rectangle, or a combined batch
+//       padded to such a member): the subset is cut into spans of
+//       kChunkPixels (512) pixels, a 64-thread block each, which sum their
+//       span in the block path's order and write its partial sums to a
+//       workspace; a second kernel adds each subset's spans in span order
+//       (0, 1, 2, ...) and writes the Gram.  The rule never depends on the
+//       subset count, so a subset's sums do not change as the LM loop's
+//       active list shrinks.
 //
 // The counts are the design sweep's choice (experiments/design_sweep.py;
 // the readings of the other counts are in PERF.md).
@@ -69,8 +78,22 @@
 // the image's row pitch (the global-tile path); the rows are staged if
 // they fit alone.  Every path reads the same values in the same order,
 // so the sums do not change, and the launch never fails for lack of
-// shared memory.  The global-tile path is correct, not tuned: a subset
-// of 10^5 pixels still takes a single block on one SM.
+// shared memory.  The split path stages only its span's rows and always
+// reads the tile from memory: staged by each span's block, an L1-sized
+// tile would be copied once a span.
+//
+// Why the split path: one block a subset put a blob of 71,264 pixels on
+// one of 132 SMs, 0.55 ms an L0 assembly at 0.12% of its bytes bound.
+// Cut into 140 spans of 512 it takes 0.0146 ms (38x); the blob's 17,816
+// and 4,456-pixel levels take 0.0107 and 0.0092 ms against 0.116 and
+// 0.024 ms in one block (H100 80GB HBM3, 700 W; PERF.md).  A span of 512
+// is the design sweep's choice over 128-2048: shorter spans repeat each
+// block's prologue (index, parameters, corners, origin) more often,
+// longer ones leave SMs idle and lengthen each thread's chain of
+// dependent tile reads.  What remains is probably latency, not bytes
+// (not measured; no ncu): one block an SM, two warps, each pixel's tile
+// reads waiting on L2; at 4,456 pixels the two launches and the
+// prologue are most of the time (spans of 128 take 0.0068 ms there).
 //
 // Not on the tensor cores: the Gram is 72 of the 242 operations a pixel,
 // and no CPU order reproduces a tensor core's internal accumulation, so a
@@ -93,6 +116,14 @@ namespace {
 constexpr int kBlockThreads = 64;
 constexpr int kWarpLanes = 16;
 constexpr int kWarpSubsets = 4;  // warps a block on the warp path
+// The split rule, on the padded pixel count alone: a subset of more than
+// kChunkMin pixels is cut into spans of kChunkPixels (the last ragged), a
+// block each.  assemble_v2.py's CHUNK_MIN_PIXELS and CHUNK_PIXELS must
+// equal them (the plain version adds the spans in their order).
+constexpr int kChunkMin = 2048;
+constexpr int kChunkPixels = 512;
+static_assert(kChunkPixels % kBlockThreads == 0 && kChunkMin >= kChunkPixels,
+              "a span is whole rounds of the block's threads");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 227 * 1024;
 // Slots of the reduction's static shared memory a lane group or warp:
@@ -246,6 +277,26 @@ __device__ __forceinline__ void stage_rows(float* rows,
   }
 }
 
+// The split path's stage_rows: rows 0 .. 5 + C of a span of `len` pixels
+// (`px` points at the span's first pixel in row 0 of the subset's slab,
+// rows p_len apart) into `rows`, rows `stride` floats apart.  16-byte
+// copies when `vec` (p_len, the span's start, len and stride multiples of
+// 4, pix aligned).
+template <int C>
+__device__ __forceinline__ void stage_span(float* rows,
+                                           const float* __restrict__ px,
+                                           int p_len, int len, int stride,
+                                           bool vec, int t, int threads) {
+  const int step = vec ? 4 : 1, per_row = len / step;
+  for (int i = t; i < (5 + C) * per_row; i += threads) {
+    const int r = i / per_row, q = (i - r * per_row) * step;
+    if (vec)
+      cp_async16(rows + r * stride + q, px + (size_t)r * p_len + q);
+    else
+      cp_async4(rows + r * stride + q, px + (size_t)r * p_len + q);
+  }
+}
+
 // Stage the tile_h x tile_w x C tile at (y0, x0) into `tile`, rows
 // tile_pitch apart, by 4-byte cp.async copies.  The threads split the
 // row's columns, and its rows too when there are more threads than
@@ -273,23 +324,23 @@ __device__ __forceinline__ void stage_tile(float* tile,
   }
 }
 
-// One thread's Gram partial sums over pixels t, t + threads, ... of the
-// subset, channels inner.  `tile` points at the tile's origin, rows
+// One thread's Gram partial sums over pixels t, t + threads, ... below
+// `count`, channels inner.  `tile` points at the tile's origin, rows
 // `pitch` floats apart (in shared memory, or in the padded image);
-// `rows` holds the pixel rows at stride p_len (in shared memory, or the
-// subset's slab of pix).
+// `rows` holds the pixel rows, `stride` floats apart (in shared memory,
+// or the subset's slab of pix).
 template <int MODEL, int INTERP, int C>
 __device__ __forceinline__ void accumulate(
     float* acc, const Subset& sub, const float* tile, int pitch,
-    const float* rows, int p_len, int img_h, int img_w, int tile_h,
-    int tile_w, int t, int threads) {
+    const float* rows, int stride, int count, int img_h, int img_w,
+    int tile_h, int tile_w, int t, int threads) {
   constexpr int NP = num_params(MODEL);
   constexpr int R = NP + 2;  // G rows: H, V, bad
   constexpr int TAPS = INTERP == 2 ? 4 : 2;
   constexpr int HALO = INTERP == 2 ? 1 : 0;
-  for (int q = t; q < p_len; q += threads) {
-    const float x = rows[q], y = rows[p_len + q], m = rows[2 * p_len + q];
-    const float dxc = rows[3 * p_len + q], dyc = rows[4 * p_len + q];
+  for (int q = t; q < count; q += threads) {
+    const float x = rows[q], y = rows[stride + q], m = rows[2 * stride + q];
+    const float dxc = rows[3 * stride + q], dyc = rows[4 * stride + q];
     float xd, yd;
     warp<MODEL>(sub.p, x, y, dxc, dyc, xd, yd);
     float ax = floorf(xd), ay = floorf(yd);
@@ -357,7 +408,7 @@ __device__ __forceinline__ void accumulate(
         wdy = wdy + kx[k] * tmp_d[k];
       }
       const float dwdx = wdx * live, dwdy = wdy * live;
-      const float und = rows[(5 + c) * p_len + q];
+      const float und = rows[(5 + c) * stride + q];
       float g[R];
       g[0] = dwdx;
       if constexpr (NP == 2) g[1] = dwdy;
@@ -459,12 +510,22 @@ struct Args {
   int n, num_subsets, tile_h, tile_w;
   bool stage_rows, stage_tile, vec;
   int groups;  // warp path: lane groups of a warp that hold a subset
+  // Split path (chunks > 1): spans of `chunk` pixels, a block each, their
+  // partial sums at partial[(slot * chunks + span) * NPROD + product].
+  int chunk, chunks;
+  float* partial;
   float* out;
 };
 
-// Shared-memory floats of one subset under the launcher's choice.
+// Pixels a block stages the rows of: the subset's, or a span's.
+__host__ __device__ inline int row_len(const Args& a) {
+  return a.chunks > 1 ? a.chunk : a.p_len;
+}
+
+// Shared-memory floats of one block's subset or span under the
+// launcher's choice.
 __host__ __device__ inline int subset_floats(const Args& a, int c) {
-  return rows_floats(a.p_len, c, a.stage_rows) +
+  return rows_floats(row_len(a), c, a.stage_rows) +
          tile_floats(a.tile_h, a.tile_w, c, a.stage_tile);
 }
 
@@ -478,7 +539,7 @@ __device__ __forceinline__ void accumulate_where(
     float* acc, const Subset& sub, const Args& a, const float* smem_rows,
     const float* smem_tile, int p_len, int t, int threads) {
   auto run = [&](const float* tile, int pitch, const float* rows) {
-    accumulate<MODEL, INTERP, C>(acc, sub, tile, pitch, rows, p_len,
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, pitch, rows, p_len, p_len,
                                  a.img_h, a.img_w, a.tile_h, a.tile_w, t,
                                  threads);
   };
@@ -598,6 +659,97 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// Split path, first pass: block b sums span b % chunks of list position
+// b / chunks, pixels [span * chunk, + chunk) of its padded pixels, in the
+// block path's order, and writes the span's partial sums.  Every span's
+// block loads the subset and computes its origin itself; it stages only
+// its span's rows and reads the tile from the padded image in memory.
+template <int MODEL, int INTERP, int C>
+__global__ void __launch_bounds__(kBlockThreads)
+    fused_assemble_span(const Args a) {
+  constexpr int NPROD = (num_params(MODEL) + 2) * (num_params(MODEL) + 3) / 2;
+  constexpr int kWarps = kBlockThreads / 32;
+  static_assert(NPROD <= kBlockThreads, "a thread writes each product");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_red[kWarps][NPROD];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int slot = blockIdx.x / a.chunks;
+  const int span = blockIdx.x - slot * a.chunks;
+  const int start = span * a.chunk;
+  const int len = min(a.chunk, a.p_len - start);
+
+  // The rows need only the index: issue them before the origin's loads.
+  const int s = a.idx ? a.idx[slot] : slot;
+  const bool ok = (unsigned)s < (unsigned)a.num_subsets;
+  const float* px = a.pix + (size_t)(ok ? s : 0) * 8 * a.p_len + start;
+  if (a.stage_rows && ok)
+    stage_span<C>(smem, px, a.p_len, len, a.chunk, a.vec, tid,
+                  kBlockThreads);
+  const Subset sub = load_subset<MODEL, INTERP>(
+      slot, a.idx, a.num_subsets, a.center, a.params, a.bbox, a.hp, a.wp,
+      a.tile_h, a.tile_w, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[NPROD];
+#pragma unroll
+  for (int k = 0; k < NPROD; ++k) acc[k] = 0.f;
+  const float* tile = a.img + ((size_t)sub.y0 * a.wp + sub.x0) * C;
+  if (a.stage_rows)
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, a.wp * C, smem, a.chunk,
+                                 len, a.img_h, a.img_w, a.tile_h, a.tile_w,
+                                 tid, kBlockThreads);
+  else
+    accumulate<MODEL, INTERP, C>(acc, sub, tile, a.wp * C, px, a.p_len, len,
+                                 a.img_h, a.img_w, a.tile_h, a.tile_w, tid,
+                                 kBlockThreads);
+  group_sums<NPROD>(acc, lane, s_red[w]);
+  __syncthreads();
+  if (tid < NPROD) {
+    // The warps' sums in warp order, as the block path adds them.
+    float v = s_red[0][tid];
+#pragma unroll
+    for (int u = 1; u < kWarps; ++u) v += s_red[u][tid];
+    a.partial[((size_t)slot * a.chunks + span) * NPROD + tid] = v;
+  }
+}
+
+// Split path, second pass: one block a list position adds its spans'
+// partial sums in span order, 0, 1, 2, ..., and writes the 8x8 Gram.  The
+// threads stage kSumSpans spans at a time in shared memory (coalesced,
+// all loads in flight together); thread k adds product k's in order.
+constexpr int kSumThreads = 64;  // a Gram entry a thread
+constexpr int kSumSpans = 32;
+
+template <int MODEL>
+__global__ void __launch_bounds__(kSumThreads)
+    fused_assemble_span_sum(const float* __restrict__ partial, int chunks,
+                            float* __restrict__ out) {
+  constexpr int R = num_params(MODEL) + 2;
+  constexpr int NPROD = R * (R + 1) / 2;
+  static_assert(NPROD <= kSumThreads, "a thread adds each product");
+  __shared__ float s_part[kSumSpans * NPROD];
+  __shared__ float s_sum[NPROD];
+  const int t = threadIdx.x, slot = blockIdx.x;
+  const float* p = partial + (size_t)slot * chunks * NPROD;
+  float v = 0.f;
+  for (int first = 0; first < chunks; first += kSumSpans) {
+    const int here = min(kSumSpans, chunks - first);
+    __syncthreads();
+    for (int i = t; i < here * NPROD; i += kSumThreads)
+      s_part[i] = p[(size_t)first * NPROD + i];
+    __syncthreads();
+    if (t < NPROD)
+      for (int j = 0; j < here; ++j)
+        v = first + j == 0 ? s_part[t] : v + s_part[j * NPROD + t];
+  }
+  if (t < NPROD) s_sum[t] = v;
+  __syncthreads();
+  out[(size_t)slot * 64 + t] =
+      gram_entry<R>(t, [&](int k) { return s_sum[k]; });
+}
+
 // Subsets of `per` bytes that fit in `budget` bytes, at most `most`.
 inline int fitting(size_t budget, size_t per, int most) {
   return per ? (int)std::min((size_t)most, budget / per) : most;
@@ -605,19 +757,25 @@ inline int fitting(size_t budget, size_t per, int most) {
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  // Without the opt-in a block's dynamic and static shared memory
+  // together stay within 48 KB; the static part is at most the warp
+  // path's reduction slots.
+  constexpr size_t kStatic =
+      sizeof(float) * kWarpSubsets * (32 / kWarpLanes) * kMaxProducts;
+  if (smem + kStatic <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // Where a subset's tile and rows go on a path with `budget` bytes: the
 // tile in shared memory if it fits alone, the rows beside it (or alone,
-// when the tile is read from memory) if they fit too.  Returns the bytes
-// of one subset.
+// when the tile is read from memory) if they fit too.  The split path
+// reads the tile from memory: staged in every span's block, it would be
+// copied once a span.  Returns the bytes of one subset (or span).
 inline size_t place(Args& a, int c, size_t budget) {
   const size_t tile = (size_t)tile_floats(a.tile_h, a.tile_w, c, true) * 4;
-  const size_t rows = (size_t)rows_floats(a.p_len, c, true) * 4;
-  a.stage_tile = tile <= budget;
+  const size_t rows = (size_t)rows_floats(row_len(a), c, true) * 4;
+  a.stage_tile = a.chunks == 1 && tile <= budget;
   a.stage_rows = (a.stage_tile ? tile : 0) + rows <= budget;
   return (size_t)subset_floats(a, c) * 4;
 }
@@ -643,8 +801,27 @@ cudaError_t launch_warp(Args a, cudaStream_t stream) {
 }
 
 template <int MODEL, int INTERP, int C>
+cudaError_t launch_split(Args a, cudaStream_t stream) {
+  const size_t smem = place(a, C, kBlockBudget);
+  auto kernel = fused_assemble_span<MODEL, INTERP, C>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<a.n * a.chunks, kBlockThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  fused_assemble_span_sum<MODEL><<<a.n, kSumThreads, 0, stream>>>(
+      a.partial, a.chunks, a.out);
+  return cudaGetLastError();
+}
+
+template <int MODEL, int INTERP, int C>
 cudaError_t launch(int threads, Args a, cudaStream_t stream) {
-  a.vec = a.p_len % 4 == 0 && (uintptr_t)a.pix % 16 == 0;
+  a.vec = a.p_len % 4 == 0 && a.chunk % 4 == 0 &&
+          (uintptr_t)a.pix % 16 == 0;
+  if (a.chunks > 1) {
+    if (threads != kBlockThreads) return cudaErrorInvalidValue;
+    return launch_split<MODEL, INTERP, C>(a, stream);
+  }
   if (threads == kWarpLanes)
     return launch_warp<MODEL, INTERP, C>(a, stream);
   if (threads != kBlockThreads) return cudaErrorInvalidValue;
@@ -684,22 +861,37 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success).  `threads` picks
 // the path: kWarpLanes for the warp path, kBlockThreads for the block
-// path (anything else is cudaErrorInvalidValue).
+// path (anything else is cudaErrorInvalidValue).  `chunk` is the pixels a
+// block sums: 0 for the split rule (kChunkMin, kChunkPixels), else a
+// span length (p_len or more: one block a subset); a subset cut into
+// several spans takes the split path, on kBlockThreads threads only, and
+// `work` holds at least n x spans x the model's Gram products floats
+// (`work_floats`) for their partial sums.
 int fused_assemble_launch(int model, int interp, int c, int threads,
-                          const float* img, int hp, int wp, int img_h,
-                          int img_w, const float* pix, int p_len,
+                          int chunk, const float* img, int hp, int wp,
+                          int img_h, int img_w, const float* pix, int p_len,
                           const float* center, const float* params,
                           const float* bbox, const int* idx, int n,
                           int num_subsets, int tile_h, int tile_w,
-                          float* out, void* stream_ptr) {
+                          float* work, long long work_floats, float* out,
+                          void* stream_ptr) {
   if (n <= 0) return 0;
-  if (hp < tile_h || wp < tile_w || p_len <= 0)
+  if (hp < tile_h || wp < tile_w || p_len <= 0 || chunk < 0 || model < 0 ||
+      model > 3)
+    return (int)cudaErrorInvalidValue;
+  if (chunk == 0) chunk = p_len > kChunkMin ? kChunkPixels : p_len;
+  chunk = std::min(chunk, p_len);
+  const long long chunks = (p_len + chunk - 1) / chunk;
+  const long long nprod =
+      (num_params(model) + 2) * (num_params(model) + 3) / 2;
+  if (chunks > 1 && (n * chunks > INT32_MAX || !work ||
+                     work_floats < n * chunks * nprod))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Args a{img,    hp,     wp,     img_h,  img_w, pix,
                p_len,  center, params, bbox,   idx,   n,
                num_subsets, tile_h, tile_w, false, false, false,
-               1,      out};
+               1,      chunk,  (int)chunks, work, out};
   switch (model) {
     case 0: return dispatch_i<0>(interp, c, threads, a, stream);
     case 1: return dispatch_i<1>(interp, c, threads, a, stream);
@@ -710,15 +902,18 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
 }
 
 // The launcher's placement of a subset's tile on the path of `threads`
-// threads a subset: 1 when it is staged in shared memory, 0 when the
-// kernel reads it from the padded image (the global-tile path), -1 for an
+// threads a subset, cut into `chunks` spans: 1 when it is staged in
+// shared memory, 0 when the kernel reads it from the padded image (the
+// global-tile path, and the split path at any tile), -1 for an
 // unsupported path or channel count.
-int fused_assemble_tile_in_shared(int c, int threads, int tile_h,
-                                  int tile_w) {
-  if (c < 1 || c > 3 || (threads != kWarpLanes && threads != kBlockThreads))
+int fused_assemble_tile_in_shared(int c, int threads, int chunks,
+                                  int tile_h, int tile_w) {
+  if (c < 1 || c > 3 || (threads != kWarpLanes && threads != kBlockThreads) ||
+      chunks < 1 || (chunks > 1 && threads != kBlockThreads))
     return -1;
   Args a{};
-  a.p_len = 1;
+  a.p_len = a.chunk = 1;
+  a.chunks = chunks;
   a.tile_h = tile_h;
   a.tile_w = tile_w;
   place(a, c, threads == kWarpLanes ? kWarpBudget : kBlockBudget);

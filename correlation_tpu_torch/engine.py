@@ -365,6 +365,23 @@ def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
     return torch.device("cuda")
 
 
+MAX_CHANNELS = 3
+
+
+def check_channels(shape, what: str) -> None:
+    """Raise ValueError, before any work on the device, when images of
+    `shape` (channels last) carry more channels than the fused assembly
+    takes.  The JAX package solves them on its separable-field backend;
+    the port's coefficient-field assembly (ROADMAP.md Queue 1, item 13)
+    is the path that will lift the limit."""
+    if shape[-1] > MAX_CHANNELS:
+        raise ValueError(
+            f"{what} have {shape[-1]} channels; the solver takes at most "
+            f"{MAX_CHANNELS} (the fused assembly's limit) until the "
+            "coefficient-field assembly is ported (ROADMAP.md Queue 1, "
+            "item 13)")
+
+
 def _as_f32(a, device):
     """A float32 tensor on `device`; numpy input is copied (it may be a
     read-only view) and moved in its own dtype, then cast on the device."""
@@ -417,6 +434,8 @@ def correlate_many(
         raise ValueError(
             f"{len(batches)} batches but {len(params0_list)} guesses"
         )
+    check_channels(np.shape(und_pyramid[0]), "the undeformed images")
+    check_channels(np.shape(def_pyramid[0]), "the deformed images")
     device = resolve_device(cfg, device, und_pyramid[0])
     und = [_as_f32(a, device) for a in und_pyramid]
     dfm = [_as_f32(a, device) for a in def_pyramid]
@@ -495,6 +514,7 @@ def correlate_frames(
     iterations, error), and the carry (p, prev, chi, iterations, plus off
     and ucen for lagrangian) for the next chunk.
     """
+    check_channels(np.shape(frames_stack), "the frames")
     device = resolve_device(cfg, device, frames_stack)
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1

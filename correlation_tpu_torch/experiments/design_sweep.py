@@ -20,7 +20,13 @@ second in the reverse order of the first:
             registers and spill stores are read for the AFFINE / BICUBIC /
             C = 1 kernels, and the spill stores of every model /
             interpolation / channel kernel of the build are summed (the
-            kernels that spill are named).
+            kernels that spill are named).  Then the split path on the
+            blob's three levels (problems.blob_problem, one subset of
+            71,264 / 17,816 / 4,456 padded pixels): spans of 128 to 2048
+            pixels (SPANS) and one block a subset through the rebuilt
+            source, beside the shipped kernel, each bit for bit against
+            the plain version of its order, with the span kernels'
+            registers and spill stores.
   gram_big  csrc/exp_stages.cu rebuilt with GRAM_BIG_WARPS warps a pair of
             subsets (1, 2, 4, 8) and GRAM_BIG_DEPTH chunks in flight a warp
             (1, 2, 4), beside the shipped kernel (the source's defaults,
@@ -63,6 +69,10 @@ DEPTHS = (1, 2, 4)
 K1_KERNELS = {"warp": "fused_assemble_warpILi3ELi2ELi1EE",
               "block": "fused_assemble_blockILi3ELi2ELi1EE",
               "first": "fused_assemble_kernelILi3ELi2ELi1EE"}
+K1_SPLIT_KERNELS = {"span": "fused_assemble_spanILi3ELi2ELi1EE",
+                    "sum": "fused_assemble_span_sumILi3EE"}
+# Span lengths (pixels a block) the split path is timed at.
+SPANS = (128, 256, 512, 1024, 2048)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 OUT_DIR = _build.BUILD_DIR / "design_sweep"
 
@@ -154,28 +164,41 @@ def _gather_direct(lib):
     return gather
 
 
-def _k1_design(lib, what: str, threads: int | None):
+def k1_design(lib, what: str, threads: int | None,
+              chunk: int | None = None):
     """fused_assemble's arguments -> [S, 8, 8] through `lib`: the
     fused_assemble_launch of a build of csrc/fused_assemble.cu on the path
-    of `threads`, or the first design (threads None)."""
+    of `threads`, spans of `chunk` pixels a block (by default p_len: one
+    block a subset, the design before the split path), or the first
+    design (threads None).  It sums in the order of
+    assemble_v2.fused_assemble_reference(..., threads=, chunk=)."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    head = [i32] * (3 if threads is None else 4)
-    launch = _launcher(
-        lib, "fused_assemble_first_launch" if threads is None
-        else "fused_assemble_launch",
-        head + [vp, i32, i32, i32, i32, vp, i32, vp, vp, vp, vp, i32, i32,
-                i32, i32])
+    body = [vp, i32, i32, i32, i32, vp, i32, vp, vp, vp, vp, i32, i32, i32,
+            i32]
+    if threads is None:
+        launch = _launcher(lib, "fused_assemble_first_launch",
+                           [i32] * 3 + body)
+    else:
+        launch = _launcher(lib, "fused_assemble_launch",
+                           [i32] * 5 + body + [vp, ctypes.c_longlong])
 
     def assemble(model, interp, th, tw, img_h, img_w, img, pix, center,
                  params, bbox):
         n = params.shape[0]
         out = torch.empty((n, 8, 8), dtype=torch.float32, device=img.device)
         hp, wp, c = img.shape
-        path = [] if threads is None else [threads]
-        return _run(launch, what, out, int(model), int(interp), c, *path,
-                    img.data_ptr(), hp, wp, img_h, img_w, pix.data_ptr(),
-                    pix.shape[2], center.data_ptr(), params.data_ptr(),
-                    bbox.data_ptr(), None, n, n, th, tw)
+        p_len = pix.shape[2]
+        args = [img.data_ptr(), hp, wp, img_h, img_w, pix.data_ptr(), p_len,
+                center.data_ptr(), params.data_ptr(), bbox.data_ptr(), None,
+                n, n, th, tw]
+        if threads is None:
+            return _run(launch, what, out, int(model), int(interp), c, *args)
+        span = v2.subset_span(p_len, chunk or p_len)
+        work = v2.span_workspace(n, params.shape[1], -(-p_len // span),
+                                 img.device)
+        return _run(launch, what, out, int(model), int(interp), c, threads,
+                    span, *args, None if work is None else work.data_ptr(),
+                    0 if work is None else work.numel())
     return assemble
 
 
@@ -221,10 +244,10 @@ def k1_section(libs: dict, logs: dict, smi: str, dev) -> tuple[dict, bool]:
     for path, threads in (("warp", v2.WARP_LANES),
                           ("block", v2.BLOCK_THREADS)):
         designs[f"source/{path}"] = (
-            _k1_design(lib, f"K1 source/{path}", threads), threads,
+            k1_design(lib, f"K1 source/{path}", threads), threads,
             ptxas_usage(log, K1_KERNELS[path]),
             sum(build_spills(log).values()))
-    designs["first"] = (_k1_design(libs["sweep"], "K1 first", None), 128,
+    designs["first"] = (k1_design(libs["sweep"], "K1 first", None), 128,
                         ptxas_usage(logs["sweep"], K1_KERNELS["first"]),
                         sum(build_spills(logs["sweep"]).values()))
     spilling = build_spills(log)
@@ -277,6 +300,57 @@ def k1_section(libs: dict, logs: dict, smi: str, dev) -> tuple[dict, bool]:
     return result, all_same
 
 
+def k1_split_section(lib, log: str, smi: str, dev) -> tuple[dict, bool]:
+    """K1 on the three levels of the blob (problems.blob_problem: one
+    subset of 71,264 / 17,816 / 4,456 padded pixels, AFFINE / BICUBIC,
+    C = 1): the shipped kernel (its split rule), and through `lib`, the
+    rebuilt source, the split path at each span length of SPANS below
+    p_len and one block a subset (chunk = p_len, the design before the
+    split path), each bit for bit against the plain version of its
+    order; returns (readings, whether every design equals it)."""
+    from correlation_tpu_torch.domains import make_batch
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.problems import assembly_levels, blob_problem
+
+    cfg, frames, pts, _ = blob_problem(1)
+    pyr = build_pyramid(torch.as_tensor(frames, device=dev).float(),
+                        cfg.pyramid.stop)
+    levels = assembly_levels(cfg, make_batch(pts, None, cfg.pyramid.stop),
+                             pyr, dev)
+    del pyr
+    usage = {name: ptxas_usage(log, kernel)
+             for name, kernel in K1_SPLIT_KERNELS.items()}
+    result = {"registers_spill_stores": usage}
+    all_same = True
+    for lvl, args in sorted(levels.items()):
+        p_len = args[7].shape[2]
+        chunks = {f"chunk {c}": c for c in SPANS if c < p_len}
+        chunks.update({"shipped": None, "one block": p_len})
+        rows, fns = {}, {}
+        for name, c in chunks.items():
+            fn = (v2.fused_assemble if c is None else
+                  k1_design(lib, f"K1 {name}", v2.BLOCK_THREADS, c))
+            same = bool(torch.equal(
+                fn(*args), v2.fused_assemble_reference(*args, chunk=c)))
+            all_same &= same
+            span = v2.subset_span(p_len, c)
+            rows[name] = {"chunk": span, "spans": -(-p_len // span),
+                          "bit_identical": same}
+            fns[name] = (fn, list(args))
+        for name, ms in two_passes(fns, cold=False).items():
+            rows[name]["ms"] = ms
+        result[f"L{lvl}"] = {"p_len": p_len, "designs": rows}
+        for name, r in rows.items():
+            print(f"K1 blob L{lvl} {name:10s} ({r['spans']:3d} spans of "
+                  f"{r['chunk']:5d} px): {r['ms'][0]:.6f} / {r['ms'][1]:.6f}"
+                  f" ms (two passes, graph); bit-identical to its order: "
+                  f"{r['bit_identical']} ({smi})")
+    print(f"K1 split path, ptxas (AFFINE / BICUBIC / C = 1): "
+          + ", ".join(f"{k} kernel {v[0]} registers, {v[1]} B spill stores"
+                      for k, v in usage.items()))
+    return result, all_same
+
+
 def main(argv: list[str] = ()) -> int:
     """Run the sections named in `argv` (all when empty)."""
     sections = list(argv) or list(SECTIONS)
@@ -318,6 +392,9 @@ def main(argv: list[str] = ()) -> int:
     ok = True
     if "k1" in sections:
         result["k1"], ok = k1_section(libs, logs, smi, dev)
+        result["k1_split"], split_ok = k1_split_section(
+            libs["k1"], logs["k1"], smi, dev)
+        ok &= split_ok
         torch.cuda.empty_cache()
     if "gram_big" in sections:
         result.update(gram_big_section(libs, logs, smi, dev))

@@ -114,16 +114,17 @@ def load_library():
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.fused_assemble_launch.restype = i32
             lib.fused_assemble_launch.argtypes = [
-                i32, i32, i32, i32,  # model, interp, channels, threads
+                i32, i32, i32, i32, i32,  # model, interp, channels, threads, chunk
                 vp, i32, i32, i32, i32,  # img, hp, wp, img_h, img_w
                 vp, i32,  # pix, p_len
                 vp, vp, vp,  # center, params, bbox
                 vp, i32, i32,  # idx, n, num_subsets
                 i32, i32,  # tile_h, tile_w
+                vp, ctypes.c_longlong,  # work, work_floats
                 vp, vp,  # out, stream
             ]
             lib.fused_assemble_tile_in_shared.restype = i32
-            lib.fused_assemble_tile_in_shared.argtypes = [i32] * 4
+            lib.fused_assemble_tile_in_shared.argtypes = [i32] * 5
             lib.fused_assemble_error_string.restype = ctypes.c_char_p
             lib.fused_assemble_error_string.argtypes = [i32]
             lib.empty_kernel_launch.restype = i32

@@ -26,9 +26,11 @@ stencil lies inside the tile.
 (csrc/fused_assemble.cu) for CUDA tensors and runs
 `fused_assemble_reference`, the plain PyTorch version, for CPU tensors.
 Both take an optional int32 index list of the subsets to assemble, so an
-LM loop over the still-active subsets gathers nothing.  The kernel has two
-paths, a group of lanes per subset for small subsets and a block per
-subset for large ones; `subset_threads` picks one from the padded pixel
+LM loop over the still-active subsets gathers nothing.  The kernel has
+three paths, a group of lanes per subset for small subsets, a block per
+subset for large ones, and for very large ones (a blob) several blocks a
+subset whose partial sums a second pass adds in a fixed order;
+`subset_threads` and `subset_chunks` pick one from the padded pixel
 count, and the plain version sums the Gram in that path's order
 (`kernel_order_sum`), so the two agree bit for bit.  A tile too big for
 shared memory (`tile_in_shared`) is read from the image in memory, with
@@ -58,7 +60,7 @@ ROW_UND = 5  # undeformed intensities, rows 5 .. 5 + C (C <= 3)
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict[tuple[int, int, int], list[int]] = {}
 
-# The kernel's two paths (csrc/fused_assemble.cu): subsets of at most
+# The kernel's paths (csrc/fused_assemble.cu): subsets of at most
 # WARP_MAX_PIXELS padded pixels take WARP_LANES lanes of a warp each (the
 # warp path; kWarpLanes there), larger ones a block of BLOCK_THREADS
 # threads (kBlockThreads; the block path).  The path fixes the order of
@@ -66,28 +68,64 @@ LAUNCHES_BY_SHAPE: dict[tuple[int, int, int], list[int]] = {}
 WARP_MAX_PIXELS = 128
 WARP_LANES = 16
 BLOCK_THREADS = 64
+# The split path (kChunkMin, kChunkPixels): a subset of more than
+# CHUNK_MIN_PIXELS padded pixels is cut into spans of CHUNK_PIXELS (the
+# last ragged), a block of BLOCK_THREADS each, and the spans' sums are
+# added in span order.  The rule reads the padded length alone, so a
+# subset's sums never depend on which other subsets are assembled.
+CHUNK_MIN_PIXELS = 2048
+CHUNK_PIXELS = 512
 
 
 def subset_threads(p_len: int) -> int:
     """Threads that assemble one subset of `p_len` padded pixels:
-    WARP_LANES (the warp path) or BLOCK_THREADS (the block path)."""
+    WARP_LANES (the warp path) or BLOCK_THREADS (the block and split
+    paths)."""
     return WARP_LANES if p_len <= WARP_MAX_PIXELS else BLOCK_THREADS
 
 
-def tile_in_shared(tile_h: int, tile_w: int, channels: int,
-                   threads: int) -> bool:
+def subset_chunks(p_len: int) -> int:
+    """Spans a subset of `p_len` padded pixels is cut into: 1 up to
+    CHUNK_MIN_PIXELS, else ceil(p_len / CHUNK_PIXELS) (the split path)."""
+    return 1 if p_len <= CHUNK_MIN_PIXELS else -(-p_len // CHUNK_PIXELS)
+
+
+def subset_span(p_len: int, chunk: int | None = None) -> int:
+    """Pixels a block sums: `chunk`, by default the rule's, at most p_len."""
+    if chunk is None:
+        chunk = CHUNK_PIXELS if subset_chunks(p_len) > 1 else p_len
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return min(chunk, p_len)
+
+
+def span_workspace(n: int, num_params: int, spans: int,
+                   device) -> torch.Tensor | None:
+    """The split path's float32 workspace for n subsets of `spans` spans
+    (a row of the model's Gram products a span), or None for one block a
+    subset."""
+    if spans == 1:
+        return None
+    rows = num_params + 2
+    return torch.empty(n * spans * rows * (rows + 1) // 2,
+                       dtype=torch.float32, device=device)
+
+
+def tile_in_shared(tile_h: int, tile_w: int, channels: int, threads: int,
+                   chunks: int = 1) -> bool:
     """Whether the kernel's launcher stages a subset's tile in shared
-    memory on the path of `threads` threads a subset (subset_threads).
-    Otherwise the kernel reads the tile from the padded image in memory
-    (the global-tile path), with the same sums.  Asks the built kernel
-    library, so it needs the CUDA toolkit."""
+    memory on the path of `threads` threads a subset (subset_threads) and
+    `chunks` spans (subset_chunks; the split path never does).  Otherwise
+    the kernel reads the tile from the padded image in memory, with the
+    same sums.  Asks the built kernel library, so it needs the CUDA
+    toolkit."""
     from correlation_tpu_torch.ops._build import load_library
 
     rc = load_library().fused_assemble_tile_in_shared(
-        int(channels), int(threads), int(tile_h), int(tile_w))
+        int(channels), int(threads), int(chunks), int(tile_h), int(tile_w))
     if rc < 0:
-        raise ValueError(f"no kernel path for {channels} channels and "
-                         f"{threads} threads a subset")
+        raise ValueError(f"no kernel path for {channels} channels, "
+                         f"{threads} threads a subset and {chunks} spans")
     return bool(rc)
 
 
@@ -241,10 +279,12 @@ def fused_assemble_reference(
     bbox: torch.Tensor,
     idx: torch.Tensor | None = None,
     threads: int | None = None,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch fused assembly; same arguments as fused_assemble.
-    The Gram sums follow the order of `threads` threads a subset, by
-    default the kernel's path for this p_len (subset_threads)."""
+    The Gram sums follow the order of `threads` threads a subset over
+    spans of `chunk` pixels, by default the kernel's path for this p_len
+    (subset_threads, subset_chunks); chunk=p_len sums each subset whole."""
     if idx is not None:
         sel = idx.long()
         pix, center, params, bbox = pix[sel], center[sel], params[sel], bbox[sel]
@@ -310,23 +350,37 @@ def fused_assemble_reference(
     g = torch.stack(gs, dim=-1)  # [n, R, P, C], R = NP + 2
     r = g.shape[1]
     iu, ju = torch.triu_indices(r, r, device=g.device)
-    threads = subset_threads(pix.shape[2]) if threads is None else threads
-    sums = kernel_order_sum(g[:, iu] * g[:, ju], threads)  # upper triangle
+    p_len = pix.shape[2]
+    threads = subset_threads(p_len) if threads is None else threads
+    sums = kernel_order_sum(g[:, iu] * g[:, ju], threads,
+                            subset_span(p_len, chunk))  # upper triangle
     out = torch.zeros((g.shape[0], 8, 8), dtype=torch.float32, device=g.device)
     out[:, iu, ju] = sums
     out[:, ju, iu] = sums
     return out
 
 
-def kernel_order_sum(prod: torch.Tensor, threads: int) -> torch.Tensor:
+def kernel_order_sum(prod: torch.Tensor, threads: int,
+                     chunk: int | None = None) -> torch.Tensor:
     """Sum [n, K, P, C] over pixels and channels in the CUDA kernel's order
     for `threads` threads a subset (16, or a multiple of 32), so the plain
     version and the kernel agree bit for bit: thread t accumulates pixels
     t, t + threads, ... (channels inner), each warp (or group of 16 lanes)
     folds its lanes by a butterfly (lanes 16 apart first, then 8, ..., the
     tree of a __shfl_down reduction), and the warps' sums add in warp
-    order."""
+    order.  With `chunk` below P (the split path), each span of `chunk`
+    pixels is summed so, from its own first pixel, and the spans' sums
+    add in span order."""
     n, k, p, c = prod.shape
+    if chunk is not None and chunk < p:
+        spans = -(-p // chunk)
+        prod = torch.nn.functional.pad(prod, (0, 0, 0, spans * chunk - p))
+        parts = kernel_order_sum(prod.reshape(n, k * spans, chunk, c),
+                                 threads).reshape(n, k, spans)
+        total = parts[..., 0]
+        for j in range(1, spans):
+            total = total + parts[..., j]
+        return total
     pad = -p % threads
     if pad:
         prod = torch.nn.functional.pad(prod, (0, 0, 0, pad))
@@ -433,14 +487,19 @@ def fused_assemble(
         return out
     hp, wp, channels = img.shape
     p_len = pix.shape[2]
+    work = span_workspace(n, params.shape[1], subset_chunks(p_len),
+                          img.device)
     ptr = ctypes.c_void_p
     rc = lib.fused_assemble_launch(
         int(model), int(interp), channels, subset_threads(p_len),
+        0,  # the launcher's split rule (kChunkMin, kChunkPixels)
         ptr(img.data_ptr()), hp, wp, int(img_h), int(img_w),
         ptr(pix.data_ptr()), p_len,
         ptr(center.data_ptr()), ptr(params.data_ptr()), ptr(bbox.data_ptr()),
         ptr(idx.data_ptr() if idx is not None else None), n, params.shape[0],
-        int(tile_h), int(tile_w), ptr(out.data_ptr()),
+        int(tile_h), int(tile_w),
+        ptr(work.data_ptr() if work is not None else None),
+        0 if work is None else work.numel(), ptr(out.data_ptr()),
         ptr(torch.cuda.current_stream(img.device).cuda_stream),
     )
     check_launch(rc, "fused_assemble")

@@ -56,6 +56,7 @@ from correlation_tpu_torch.config import (
 )
 from correlation_tpu_torch.domains import make_batch
 from correlation_tpu_torch.engine import (
+    check_channels,
     correlate,
     correlate_frames,
     resolve_device,
@@ -385,6 +386,7 @@ def run_sequence(
       One FrameRecord per frame pair solved.
     """
     n_frames = len(frames)
+    check_channels(np.shape(frames[0]), "the frames")
     solver = cfg.solver
     model = solver.model
     num_params = solver.num_params

@@ -6,8 +6,9 @@ correlation_tpu.ops.assemble_v2.fused_assemble run with interpret=True,
 which takes the kernel's non-DMA path: the tile contract the port follows.
 The CUDA kernel itself is compared with the plain version on the card by
 tests_gpu/ and chip_smoke.py.  The plain version sums the Gram in the
-order of the kernel's path for the subset size (subset_threads); each
-path's order is held to a float64 sum within float32's error bound.
+order of the kernel's path for the subset size (subset_threads, and
+subset_chunks for the split path); each path's order is held to a
+float64 sum within float32's error bound.
 """
 
 import math
@@ -141,14 +142,16 @@ def test_reference_matches_jax_kernel(model, interp, channels):
     )
 
 
-@pytest.mark.parametrize("side,p_len", [(5, 40), (21, 448)])
+@pytest.mark.parametrize("side,p_len", [(5, 40), (21, 448), (47, 2304)])
 @pytest.mark.parametrize("model,interp", GRID[:2])
 def test_reference_matches_jax_on_both_paths(model, interp, side, p_len):
-    """Subsets of 40 padded pixels (the warp path, as pyramid level 2) and
-    448 (the block path, as level 0)."""
+    """Subsets of 40 padded pixels (the warp path, as pyramid level 2),
+    448 (the block path, as level 0) and 2304 (the split path: 5 spans,
+    the last of 256 pixels, its tail masked padding)."""
     warp = p_len <= tv2.WARP_MAX_PIXELS
     assert tv2.subset_threads(p_len) == (
         tv2.WARP_LANES if warp else tv2.BLOCK_THREADS)
+    assert (tv2.subset_chunks(p_len) > 1) == (p_len > tv2.CHUNK_MIN_PIXELS)
     args = _problem(model, s=3, side=side, p_len=p_len)
     got = _port(model, interp, *args)
     ref = _jax(model, interp, *args)
@@ -159,22 +162,27 @@ def test_reference_matches_jax_on_both_paths(model, interp, side, p_len):
 
 
 @pytest.mark.parametrize("threads", [16, 32, 64, 128])
-@pytest.mark.parametrize("p_len", [40, 448])
+@pytest.mark.parametrize("p_len", [40, 448, 2049, 2304])
 def test_kernel_order_sum_within_float32_bound(p_len, threads):
     """Each order against the float64 sum: within gamma_d * sum |terms|,
-    d the additions a term goes through (its thread's chain, the lane
-    butterfly, the warps in order), gamma_d = d u / (1 - d u)."""
+    d the additions a term goes through (its thread's chain over its
+    span, the lane butterfly, the warps in order, then the spans in
+    order), gamma_d = d u / (1 - d u).  Above CHUNK_MIN_PIXELS the rule
+    splits: 2049 leaves a last span of one pixel, 2304 one of 256."""
     rng = np.random.default_rng(p_len + threads)
     channels = 2
     prod = rng.normal(size=(4, 36, p_len, channels)) * rng.lognormal(
         0, 2, size=(4, 36, 1, 1))
     prod = torch.as_tensor(prod.astype(np.float32))
-    got = tv2.kernel_order_sum(prod, threads).double()
+    chunk = tv2.subset_span(p_len)
+    spans = tv2.subset_chunks(p_len)
+    assert spans == -(-p_len // chunk)
+    got = tv2.kernel_order_sum(prod, threads, chunk).double()
     exact = prod.double().sum(dim=(2, 3))
     terms = prod.double().abs().sum(dim=(2, 3))
     group = min(threads, 32)
-    depth = (-(-p_len // threads) * channels + int(math.log2(group))
-             + threads // group - 1)
+    depth = (-(-chunk // threads) * channels + int(math.log2(group))
+             + threads // group - 1 + spans - 1)
     u = 2.0 ** -24
     gamma = depth * u / (1 - depth * u)
     assert ((got - exact).abs() <= gamma * terms).all()
@@ -183,20 +191,71 @@ def test_kernel_order_sum_within_float32_bound(p_len, threads):
 
 def test_subset_threads_rule_matches_the_kernel_source():
     """The plain version's order follows the path the kernel takes: the
-    rule's constants are the .cu file's."""
+    rule's constants are the .cu file's, and the split rule reads the
+    padded length alone."""
     src = (Path(tv2.__file__).parent.parent / "csrc"
            / "fused_assemble.cu").read_text()
     kernel = {k: int(re.search(rf"constexpr int k{k} = (\d+);", src).group(1))
-              for k in ("BlockThreads", "WarpLanes")}
+              for k in ("BlockThreads", "WarpLanes", "ChunkMin",
+                        "ChunkPixels")}
     assert tv2.BLOCK_THREADS == kernel["BlockThreads"]
     assert tv2.WARP_LANES == kernel["WarpLanes"]
+    assert tv2.CHUNK_MIN_PIXELS == kernel["ChunkMin"]
+    assert tv2.CHUNK_PIXELS == kernel["ChunkPixels"]
     assert tv2.subset_threads(1) == tv2.WARP_LANES
     assert tv2.subset_threads(tv2.WARP_MAX_PIXELS) == tv2.WARP_LANES
     assert tv2.subset_threads(tv2.WARP_MAX_PIXELS + 1) == tv2.BLOCK_THREADS
+    # Every shape of the dense grid (448 / 128 / 40 padded pixels) and of
+    # the annulus (1328 / 336 / 88) stays whole.
+    assert tv2.CHUNK_MIN_PIXELS >= 2048
+    assert tv2.CHUNK_PIXELS % tv2.BLOCK_THREADS == 0
+    for p_len in (1, 40, 88, 128, 336, 448, 1328, tv2.CHUNK_MIN_PIXELS):
+        assert tv2.subset_chunks(p_len) == 1
+        assert tv2.subset_span(p_len) == p_len
+    for p_len in (tv2.CHUNK_MIN_PIXELS + 1, 4456, 17816, 71264):
+        assert tv2.subset_chunks(p_len) == -(-p_len // tv2.CHUNK_PIXELS)
+        assert tv2.subset_span(p_len) == tv2.CHUNK_PIXELS
+    assert tv2.subset_span(4456, 10000) == 4456
+    with pytest.raises(ValueError):
+        tv2.subset_span(4456, 0)
+
+
+@pytest.mark.parametrize("p_len", [40, 448, 1328, 2048])
+def test_split_order_keeps_the_whole_order_up_to_the_threshold(p_len):
+    """Up to CHUNK_MIN_PIXELS the rule's order is the one-block order,
+    bit for bit, on every path's thread count."""
+    rng = np.random.default_rng(p_len)
+    prod = torch.as_tensor(rng.normal(size=(3, 36, p_len, 2)).astype(
+        np.float32))
+    threads = tv2.subset_threads(p_len)
+    assert torch.equal(
+        tv2.kernel_order_sum(prod, threads, tv2.subset_span(p_len)),
+        tv2.kernel_order_sum(prod, threads))
+    assert torch.equal(tv2.kernel_order_sum(prod, threads, p_len + 64),
+                       tv2.kernel_order_sum(prod, threads))
+
+
+def test_split_order_adds_spans_in_order():
+    """Above the threshold the order is each span's own block order, then
+    the spans left to right; it differs from the one-block order."""
+    rng = np.random.default_rng(3)
+    p_len, threads = 2304, tv2.BLOCK_THREADS
+    prod = torch.as_tensor(rng.normal(size=(2, 36, p_len, 1)).astype(
+        np.float32))
+    chunk = tv2.subset_span(p_len)
+    spans = [tv2.kernel_order_sum(prod[:, :, i:i + chunk], threads)
+             for i in range(0, p_len, chunk)]
+    total = spans[0]
+    for part in spans[1:]:
+        total = total + part
+    got = tv2.kernel_order_sum(prod, threads, chunk)
+    assert torch.equal(got, total)
+    assert not torch.equal(got, tv2.kernel_order_sum(prod, threads))
 
 
 def test_plain_version_takes_the_order_of_any_path():
-    """threads= picks the order; the default is the rule's path."""
+    """threads= picks the order; the default is the rule's path; chunk=
+    at p_len or more changes nothing below the split threshold."""
     model, interp = FittingModel.AFFINE, Interpolation.BICUBIC
     dfm, xy, mask, center, und_w, params = _problem(model, s=3)
     th, tw = _tiles(dfm, xy)
@@ -210,6 +269,8 @@ def test_plain_version_takes_the_order_of_any_path():
     default = tv2.fused_assemble_reference(*args)
     assert torch.equal(default,
                        tv2.fused_assemble_reference(*args, threads=rule))
+    assert torch.equal(default, tv2.fused_assemble_reference(
+        *args, chunk=xy.shape[1]))
     orders = {t: tv2.fused_assemble_reference(*args, threads=t)
               for t in (16, 32, 64, 128)}
     assert any(not torch.equal(orders[16], o) for o in orders.values())

@@ -53,6 +53,7 @@ from correlation_tpu_torch.config import (
     SolverConfig,
 )
 from correlation_tpu_torch.interop import sequence_config_from_dict
+from correlation_tpu_torch.ops import assemble_v2 as tv2
 from synthetic import Speckle
 
 torch.set_num_threads(2)
@@ -210,6 +211,31 @@ def test_combined_batch_differs_from_separate_only_by_padding(problem):
                         device="cpu")
         for name in ("params", "chi", "iterations", "error"):
             assert torch.equal(getattr(sep, name), getattr(part, name)), name
+
+
+def test_split_blob_matches_jax(problem):
+    """A blob of more than CHUNK_MIN_PIXELS points at level 0, so its Gram
+    sums take the split path's order (spans of CHUNK_PIXELS, added in
+    span order), against JAX's correlate_many: iterations and error codes
+    identical, parameters and chi within this file's tolerances."""
+    cfg, jcfg, und_pyr, def_pyr, _, _, _ = problem
+    theta = np.linspace(0, 2 * np.pi, 48, endpoint=False)
+    contour = np.stack([80 + 34 * np.cos(theta), 80 + 30 * np.sin(theta)],
+                       -1).astype(np.float32)
+    with jax_numpy_generators():
+        jb = jdom.blob_batch(jdom.BlobDomain(contour), 1)
+    b = tdom.blob_batch(tdom.BlobDomain(contour), 1)
+    for a, c in zip(b.xy + b.mask, jb.xy + jb.mask):
+        np.testing.assert_array_equal(a, c)
+    assert tv2.subset_chunks(b.xy[0].shape[1]) > 1
+    p0 = [np.zeros((1, 2), np.float32)]
+    with pallas_interpret():
+        ref = jax_correlate_many(jcfg, und_pyr, def_pyr, [jb], p0)
+    got = correlate_many(cfg, und_pyr, def_pyr, [b], p0, device="cpu")
+    _assert_same_solve(got[0], ref[0])
+    assert int(got[0].error[0]) == 0
+    np.testing.assert_allclose(got[0].params[0].numpy(), [0.7, -0.5],
+                               atol=0.02)
 
 
 def _drift_frames(n, du, dv, h=96, w=96, seed=42):

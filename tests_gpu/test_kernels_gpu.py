@@ -3,7 +3,9 @@
 The plain version sums the Gram in the kernel's order and both round every
 per-pixel operation alike, so the kernel must equal it bit for bit, on
 the warp path (at most assemble_v2.WARP_MAX_PIXELS padded pixels a
-subset) and on the block path (more).
+subset), on the block path (more) and on the split path (more than
+assemble_v2.CHUNK_MIN_PIXELS: several blocks a subset, their partial
+sums added in span order).
 """
 
 import os
@@ -209,6 +211,12 @@ def test_tile_in_shared_is_the_launchers_rule(dev):
         v2.tile_in_shared(64, 64, 1, 32)
     with pytest.raises(ValueError):
         v2.tile_in_shared(64, 64, 4, block)
+    # The split path reads every tile from memory, on the block's threads.
+    assert not v2.tile_in_shared(32, 32, 1, block, 2)
+    with pytest.raises(ValueError):
+        v2.tile_in_shared(32, 32, 1, warp, 2)
+    with pytest.raises(ValueError):
+        v2.tile_in_shared(32, 32, 1, block, 0)
 
 
 @pytest.mark.parametrize("tile", GLOBAL_TILES)
@@ -235,6 +243,87 @@ def test_global_tile_equals_plain(dev, case, path, tile):
                                                device=dev))
     idx = torch.tensor([5, 0, 8, 5, 5, 2], dtype=torch.int32, device=dev)
     assert torch.equal(_assert_equal_plain(args, idx), got[idx.long()])
+
+
+# The split path: 2049 padded pixels (5 spans, the last of one pixel,
+# 4-byte copies) and 2304 (the last of 256, 16-byte copies), with tiles
+# that fit in shared memory (from the extent) and that do not.
+SPLIT_PIXELS = [2049, 2304]
+SPLIT_TILES = {"fits": None, "too big": 320}
+
+
+@pytest.mark.parametrize("tile", sorted(SPLIT_TILES))
+@pytest.mark.parametrize("p_len", SPLIT_PIXELS)
+@pytest.mark.parametrize("case", range(len(GLOBAL_CASES)))
+def test_split_equals_plain(dev, case, p_len, tile):
+    """Every model and interpolation at C = 1, and C = 3 at one: the whole
+    list, 1-9 subsets of it and an index list with repeats, bit for bit
+    with the plain version, run to run; and in one block a subset."""
+    model, interp, channels = GLOBAL_CASES[case]
+    size = SPLIT_TILES[tile]
+    args = _args(model, interp, channels, dev, s=9, side=48, p_len=p_len,
+                 tile=size and (size, size),
+                 hw=(size + 8, size + 8) if size else (120, 150))
+    spans = v2.subset_chunks(p_len)
+    assert spans == -(-p_len // v2.CHUNK_PIXELS) > 1
+    th, tw = args[2:4]
+    assert v2.tile_in_shared(th, tw, channels, v2.BLOCK_THREADS) == (
+        size is None)
+    assert not v2.tile_in_shared(th, tw, channels, v2.BLOCK_THREADS, spans)
+    v2.reset_launches()
+    got = _assert_equal_plain(args)
+    assert torch.equal(got, v2.fused_assemble(*args))
+    assert v2.LAUNCHES == 2
+    num_p = NUM_PARAMS[model]
+    assert got[0, num_p + 1, num_p + 1] > 0
+    for k in range(1, 10):
+        _assert_equal_plain(args, torch.arange(k, dtype=torch.int32,
+                                               device=dev))
+    idx = torch.tensor([5, 0, 8, 5, 5, 2], dtype=torch.int32, device=dev)
+    assert torch.equal(_assert_equal_plain(args, idx), got[idx.long()])
+    one = _span_design(p_len)(*args)
+    assert torch.equal(one, v2.fused_assemble_reference(*args, chunk=p_len))
+
+
+def _span_design(chunk):
+    """The kernel library's launcher at spans of `chunk` pixels (at p_len
+    or more: one block a subset), as the design sweep runs it."""
+    from correlation_tpu_torch.experiments.design_sweep import k1_design
+    from correlation_tpu_torch.ops._build import load_library
+
+    return k1_design(load_library(), f"K1 chunk {chunk}", v2.BLOCK_THREADS,
+                     chunk)
+
+
+@pytest.mark.parametrize("chunk", [64, 100, 512, 2048, 2304, 4096])
+def test_any_span_length_equals_plain(dev, chunk):
+    """The launcher's span length (100: not whole rounds of the threads,
+    4-byte copies; 2048: a 48 KB staging request); at p_len or more, one
+    block a subset."""
+    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev, s=5,
+                 side=48, p_len=2304)
+    got = _span_design(chunk)(*args)
+    ref = v2.fused_assemble_reference(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_split_path_replays_from_a_cuda_graph(dev):
+    """The workspace comes from the caching allocator and the second pass
+    is a kernel of its own, so a captured assembly replays exactly."""
+    args = _args(FittingModel.AFFINE, Interpolation.BICUBIC, 1, dev, s=4,
+                 side=48, p_len=2304)
+    ref = v2.fused_assemble_reference(*args)
+    v2.fused_assemble(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = v2.fused_assemble(*args)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 def _trap_code(side, tile=None, hw=(120, 150)):
@@ -276,6 +365,11 @@ def test_index_out_of_range_stops_kernel_on_global_tile(dev, path):
     _assert_traps(_trap_code(SIDES[path], (320, 320), (328, 328)))
 
 
+def test_index_out_of_range_stops_kernel_on_split_path(dev):
+    assert v2.subset_chunks(48 * 48) > 1
+    _assert_traps(_trap_code(48))
+
+
 def test_backend_must_match_device(dev):
     img = speckle(64, 64, 3)
     pyr = [a.to(dev) for a in build_pyramid(torch.as_tensor(img[..., None]),
@@ -314,8 +408,9 @@ def test_correlate_on_card_equals_cpu(dev):
 
 def test_large_rectangle_on_card_equals_cpu(dev):
     """One 299 x 299 sector: its level-0 tile (320 x 320) exceeds shared
-    memory, so the kernel reads it from memory; the solve equals the
-    CPU's, bit for bit."""
+    memory, so the kernel reads it from memory, and at 89,408 and 22,208
+    padded pixels levels 0 and 1 take the split path; the solve equals
+    the CPU's, bit for bit."""
     from correlation_tpu_torch.domains import (
         RectangularDomain,
         rectangular_batch,
@@ -330,6 +425,7 @@ def test_large_rectangle_on_card_equals_cpu(dev):
     th, tw = v2.choose_tile(*batch.extents[0], 384, 384)
     p_len = batch.xy[0].shape[1]
     assert not v2.tile_in_shared(th, tw, 1, v2.subset_threads(p_len))
+    assert v2.subset_chunks(p_len) > 1
     p0 = np.zeros((1, 6), np.float32)
     cpu = correlate(cfg, und_pyr, def_pyr, batch, p0, device="cpu")
     v2.reset_launches()

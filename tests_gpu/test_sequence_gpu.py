@@ -83,3 +83,5 @@ def test_blob_sequence_on_global_tile_equals_cpu():
     big = [k for k, (n, _) in v2.LAUNCHES_BY_SHAPE.items() if n
            and not v2.tile_in_shared(k[1], k[2], 1, v2.subset_threads(k[0]))]
     assert big
+    # Every level of the blob is split over several blocks.
+    assert all(v2.subset_chunks(k[0]) > 1 for k in v2.LAUNCHES_BY_SHAPE)
