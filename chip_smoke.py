@@ -60,6 +60,24 @@ Phases, one informational line each:
      (error codes identical, params over 5e-5 named, and each domain
      padded to the combined lengths equal to its share bit for bit), with
      one assembly of the combined batch at each level timed both ways.
+ 10. field: the coefficient-field assembly (backend "field", no hand
+     kernel: PyTorch elementwise operations in a fixed order): the fields of
+     the dense-grid pair's deformed levels (1024^2 / 512^2 / 256^2) for the
+     three interpolations and one field assembly of the 4096 subsets per
+     level, card against CPU bit for bit; the 64-frame chunk of phase 5 on
+     the field path with phase 5's checks, no K1 launch, and card vs CPU
+     on 256 subsets x 2 frames; its solves/s and per-level assembly and
+     field times beside phase 6's tiled readings; a 4-channel version of
+     the drifting frames (256 subsets x 4 pairs) under "auto", which takes
+     the field path, card against CPU bit for bit; and a second reading of
+     K1 at each level;
+ 11. surface: `python -m correlation_tpu_torch.cli` as a subprocess on the
+     card: 8 drifting 1024x1024 PNG frames (written under build/), a
+     16 x 16 rectangle grid with --report, --plot-dir --plot-points and
+     --profile, checked against the known motion, the overlay files and the
+     trace file; then --auto-guess on a pair shifted by 40 px, beyond the
+     3-level pyramid's capture range, which must recover the shift within
+     0.02 px; with each wall time.
 Then a JSON line with the kernel records (K1 at each level of the dense
 grid and of the blob, K2, the five stages): launches on the main path
 (K1: its level's, with the mean subsets a launch and the threads a
@@ -72,6 +90,7 @@ exits non-zero without those lines; so does a machine without a CUDA
 device, or a directory without the package.
 """
 
+import dataclasses
 import json
 import sys
 import time
@@ -798,7 +817,254 @@ def domains_phase(torch, dev, smi, v2):
     return records
 
 
+def field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args, batch,
+                params0, stack_dev, tiled):
+    """Phase 10: the coefficient-field assembly (backend "field") at full
+    width.  `tiled` holds phase 6's readings of the same run: (chunk
+    seconds, {level: (kernel graph ms, eager ms, plain ms)})."""
+    import numpy as np
+
+    from correlation_tpu_torch.config import Interpolation
+    from correlation_tpu_torch.domains import SubsetBatch
+    from correlation_tpu_torch.engine import correlate_frames
+    from correlation_tpu_torch.ops.assemble import field_assemble
+    from correlation_tpu_torch.ops.interp import precompute_field
+    from correlation_tpu_torch.problems import drifting_sequence
+    from correlation_tpu_torch.utils.profiling import graph_ms
+
+    phase_t0 = time.perf_counter()
+    fcfg = dataclasses.replace(cfg, backend="field")
+    # The fields of the deformed frame's levels, card against CPU.
+    sizes = []
+    for interp in Interpolation:
+        for lvl in range(len(pyr)):
+            got = precompute_field(pyr[lvl][1], interp).field
+            ref = precompute_field(cpu_pyr[lvl][1], interp).field
+            check(torch.equal(got.cpu(), ref),
+                  f"the {interp.name} field of level {lvl} differs card vs "
+                  f"CPU")
+            sizes.append(f"{interp.name} L{lvl} {tuple(got.shape)}")
+            del got, ref
+    # One field assembly of every subset per level, card against CPU, at
+    # phase 6's parameters (subset 7 out of the image).
+    asm = {}
+    for lvl, args in sorted(level_args.items()):
+        _, _, _, _, _, _, _, pix, center, params, _ = args
+        field = precompute_field(pyr[lvl][1], cfg.interpolation)
+        got = field_assemble(cfg.model, cfg.interpolation, field, pix, center,
+                             params)
+        ref = field_assemble(
+            cfg.model, cfg.interpolation,
+            precompute_field(cpu_pyr[lvl][1], cfg.interpolation), pix.cpu(),
+            center.cpu(), params.cpu())
+        check(torch.equal(got.cpu(), ref),
+              f"the level-{lvl} field assembly differs card vs CPU")
+        check(float(ref[7, 7, 7]) > 0, f"L{lvl}: out-of-image subset not "
+              "flagged by the field assembly")
+        asm[lvl] = (
+            graph_ms(lambda: field_assemble(cfg.model, cfg.interpolation,
+                                            field, pix, center, params), 5),
+            graph_ms(lambda: precompute_field(pyr[lvl][1],
+                                              cfg.interpolation), 5),
+        )
+        del field, got, ref
+    torch.cuda.empty_cache()
+
+    # The 64-frame chunk on the field path: phase 5's checks, no K1.  One
+    # run, timed as it is (a second run read within 1.3% of the first on
+    # the H100: nothing on this path compiles or caches).
+    torch.cuda.synchronize()
+    v2.reset_launches()
+    t0 = time.perf_counter()
+    out = correlate_frames(fcfg, stack_dev, batch, params0, device=dev)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    mean_it = float(out["iterations"].float().mean())
+    check(v2.LAUNCHES == 0, f"the field path launched K1 {v2.LAUNCHES} times")
+    params = out["params"].cpu().numpy()
+    errors = out["error"].cpu().numpy()
+    check(np.isfinite(params).all(), "field: non-finite parameters")
+    hard = float(np.mean((errors != 0) & (errors != 3)))
+    check(hard < 0.005, f"field: hard-error fraction {hard}")
+    med = np.median(params[-1][:, :2], axis=0)
+    check(abs(med[0]) <= 0.02 and abs(med[1] - 1.0) <= 0.02,
+          f"field: median (u, v) = {med}, expected (0, 1)")
+    sub = SubsetBatch([a[:CPU_SUBSETS] for a in batch.xy],
+                      [m[:CPU_SUBSETS] for m in batch.mask],
+                      batch.center0[:CPU_SUBSETS], batch.extents)
+    cpu = correlate_frames(fcfg, stack_dev[:3].cpu(), sub,
+                           params0[:CPU_SUBSETS], device="cpu")
+    same = all(torch.equal(out[k][:2, :CPU_SUBSETS].cpu(), cpu[k])
+               for k in ("params", "chi", "iterations", "error"))
+    p_diff = float((out["params"][:2, :CPU_SUBSETS].cpu()
+                    - cpu["params"]).abs().max())
+    mismatch = int(((out["iterations"][:2, :CPU_SUBSETS].cpu()
+                     != cpu["iterations"])
+                    | (out["error"][:2, :CPU_SUBSETS].cpu()
+                       != cpu["error"])).sum())
+    check(p_diff <= 1e-3, f"field: card vs CPU params differ by {p_diff}")
+    check(mismatch <= 0.01 * cpu["error"].numel(),
+          f"field: {mismatch} iteration/error mismatches card vs CPU")
+    del out
+    torch.cuda.empty_cache()
+    tiled_s, tiled_levels = tiled
+    s = batch.num_subsets
+    frames = stack_dev.shape[0] - 1
+    levels = "; ".join(
+        f"L{lvl} field assembly {a:.4f} ms (graph), field build {f:.4f} ms, "
+        f"tiled kernel {tiled_levels[lvl][0]:.4f} ms"
+        for lvl, (a, f) in asm.items())
+    print(f"field ({smi}): fields card == CPU bit for bit ({', '.join(sizes)});"
+          f" one assembly of {s} subsets card == CPU bit for bit at every "
+          f"level; {frames}-frame chunk on the field path "
+          f"{chunk_s:.4f} s = {s * frames / chunk_s:.1f} "
+          f"solves/s (tiled, phase 6: {tiled_s:.4f} s = "
+          f"{s * frames / tiled_s:.1f} solves/s), mean iterations "
+          f"{mean_it:.3f}, 0 K1 launches; hard-error fraction {hard}; median "
+          f"(u, v) = ({med[0]:.5f}, {med[1]:.5f}); card vs CPU "
+          f"({CPU_SUBSETS} subsets x 2 frames): max |dp| {p_diff:.3e}, "
+          f"{mismatch} iteration/error mismatches, bit for bit: {same}; "
+          f"{levels}")
+
+    # Four channels under "auto": the field path, card against CPU.
+    seq = drifting_sequence(4)
+    seq4 = np.concatenate([seq, 255 - seq, seq // 2, seq // 3 + 64], axis=-1)
+    acfg = dataclasses.replace(cfg, backend="auto")
+    v2.reset_launches()
+    t0 = time.perf_counter()
+    card = correlate_frames(acfg, torch.from_numpy(seq4).to(dev), sub,
+                            params0[:CPU_SUBSETS], device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    check(v2.LAUNCHES == 0, "four channels under auto launched K1")
+    cpu = correlate_frames(acfg, seq4, sub, params0[:CPU_SUBSETS],
+                           device="cpu")
+    for k in ("params", "chi", "iterations", "error"):
+        check(torch.equal(card[k].cpu(), cpu[k]),
+              f"four channels: card and CPU {k} differ")
+    errors = cpu["error"].numpy()
+    check(float(np.mean((errors != 0) & (errors != 3))) < 0.005,
+          "four channels: hard errors")
+    worst = max(float(np.abs(np.median(cpu["params"][t, :, :2].numpy(), axis=0)
+                             - [0.0, t + 1.0]).max()) for t in range(4))
+    check(worst <= 0.02, f"four channels: median (u, v) off by {worst}")
+    # A second reading of K1 at each level (phase 6's inputs).
+    again = {lvl: graph_ms(lambda: v2.fused_assemble(*args), 20)
+             for lvl, args in sorted(level_args.items())}
+    print(f"field ({smi}): four channels under auto, {CPU_SUBSETS} subsets x "
+          f"4 pairs: the field path (0 K1 launches), {card_s:.3f} s on the "
+          f"card, card == CPU bit for bit, median (u, v) within {worst:.5f} "
+          f"of the motion; K1 second reading (graph): "
+          + ", ".join(f"L{lvl} {ms:.4f} ms (phase 6: "
+                      f"{tiled_levels[lvl][0]:.4f})"
+                      for lvl, ms in again.items())
+          + f"; phase wall {time.perf_counter() - phase_t0:.1f} s")
+    return again
+
+
+def surface_phase(torch, smi):
+    """Phase 11: the command line on the card, as a user runs it, from PNG
+    frames written under build/."""
+    import csv
+    import json as json_mod
+    import shutil
+    import subprocess
+
+    import numpy as np
+    from PIL import Image
+
+    from correlation_tpu_torch.problems import drifting_sequence, speckle
+
+    phase_t0 = time.perf_counter()
+    work = REPO / "build" / "smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        frames = drifting_sequence(7)
+        paths = []
+        for t, f in enumerate(frames):
+            paths.append(str(work / f"frame_{t}.png"))
+            Image.fromarray(f[..., 0]).save(paths[-1])
+
+        def cli(args, what):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "correlation_tpu_torch.cli", *args],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"{what}: the CLI exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            return wall
+
+        report = work / "drift.csv"
+        plots, prof = work / "plots", work / "trace"
+        wall = cli(paths + ["--rect", "100", "100", "900", "880",
+                            "--subdivisions", "16", "16", "--report",
+                            str(report), "--plot-dir", str(plots),
+                            "--plot-points", "--profile", str(prof)],
+                   "drift")
+        with open(report) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 7 * 256, f"drift: {len(rows)} report rows")
+        worst, hard = 0.0, 0
+        for t in range(7):
+            part = [r for r in rows if r["Frame#"] == str(t)]
+            uv = np.array([[float(r["parameter_0"]), float(r["parameter_1"])]
+                           for r in part])
+            worst = max(worst, float(np.abs(np.median(uv, axis=0)
+                                            - [0.0, t + 1.0]).max()))
+            hard += sum(r["error_code"] not in ("0", "3") for r in part)
+        check(worst <= 0.02, f"drift: median (u, v) off by {worst}")
+        check(hard < 0.005 * len(rows), f"drift: {hard} hard errors")
+        names = sorted(p.name for p in plots.iterdir())
+        check(names == ["overlay_00001.png", "overlay_00002.png",
+                        "overlay_00003.png", "overlay_00004.png",
+                        "overlay_00005.png", "overlay_00006.png",
+                        "overlay_00007.png", "overlay_und.png"],
+              f"drift: overlays {names}")
+        dots = int((np.asarray(Image.open(plots / "overlay_00007.png"))
+                    == [64, 128, 255]).all(axis=-1).sum())
+        check(dots > 10000, f"drift: {dots} point pixels on the last overlay")
+        traces = list(prof.iterdir())
+        check(len(traces) == 1, f"drift: trace files {traces}")
+        with open(traces[0]) as f:
+            events = json_mod.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        check(len(events) > 0, "drift: an empty trace")
+
+        big = speckle(1024, 1064, 1)
+        shifted = [str(work / "shift_0.png"), str(work / "shift_1.png")]
+        Image.fromarray(big[:, 40:1064].astype(np.uint8)).save(shifted[0])
+        Image.fromarray(big[:, 0:1024].astype(np.uint8)).save(shifted[1])
+        seeded = work / "shift.csv"
+        wall_seed = cli(shifted + ["--rect", "200", "200", "824", "824",
+                                   "--subdivisions", "16", "16",
+                                   "--auto-guess", "--auto-guess-win", "128",
+                                   "--report", str(seeded)], "auto-guess")
+        with open(seeded) as f:
+            rows = list(csv.DictReader(f))
+        uv = np.array([[float(r["parameter_0"]), float(r["parameter_1"])]
+                       for r in rows])
+        check(len(rows) == 256, f"auto-guess: {len(rows)} report rows")
+        off = float(np.abs(uv - [40.0, 0.0]).max())
+        check(off <= 0.02, f"auto-guess: (u, v) off the 40 px shift by {off}")
+        check(all(r["error_code"] == "0" for r in rows),
+              "auto-guess: error codes")
+        print(f"surface ({smi}): python -m correlation_tpu_torch.cli on the "
+              f"card: 8 drifting 1024x1024 PNG frames, 16 x 16 sectors, "
+              f"report + {len(names)} overlays + trace ({len(events)} events, "
+              f"{kernels} device kernels) in {wall:.2f} s wall, median (u, v) "
+              f"within {worst:.5f} of the drift; --auto-guess on a 40 px "
+              f"shift: 256 sectors within {off:.5f} px of (40, 0) in "
+              f"{wall_seed:.2f} s wall; phase wall "
+              f"{time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
+    script_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1000,6 +1266,18 @@ def main() -> int:
     # ---- 9. annular and blob domains, multi-ROI ----------------------------
     kernels += domains_phase(torch, dev, smi, v2)
 
+    # ---- 10. the coefficient-field assembly ---------------------------------
+    again = field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args,
+                        batch, params0, stack_dev, (chunk_s, per_level))
+    for rec in kernels:
+        lvl = {f"fused_assemble_L{k}": k for k in again}.get(rec["name"])
+        if lvl is not None:
+            rec["ms_second_reading"] = again[lvl]
+
+    # ---- 11. the command line on the card -----------------------------------
+    surface_phase(torch, smi)
+
+    print(f"wall: {time.perf_counter() - script_t0:.1f} s for phases 1-11")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

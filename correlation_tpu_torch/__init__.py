@@ -3,9 +3,11 @@
 Batched Lucas-Kanade digital image correlation: Levenberg-Marquardt damped
 Gauss-Newton over parametric subset warps, solved for thousands of subsets
 at once.  The fused assembly runs as a hand-written CUDA kernel on CUDA
-tensors and as its plain PyTorch version on CPU tensors.  This package
-imports torch and never jax; correlation_tpu stays the reference it is
-tested against.
+tensors and as its plain PyTorch version on CPU tensors; the
+coefficient-field assembly (backend "field") runs as the same PyTorch code
+on either.  The command line is `python -m correlation_tpu_torch.cli`.
+This package imports torch and never jax; correlation_tpu stays the
+reference it is tested against.
 """
 
 from correlation_tpu_torch.config import (
@@ -30,7 +32,17 @@ from correlation_tpu_torch.engine import (
     correlate_frames,
     correlate_many,
 )
+from correlation_tpu_torch.ops.assemble import field_assemble
+from correlation_tpu_torch.ops.interp import (
+    InterpField,
+    precompute_field,
+    sample_field,
+)
 from correlation_tpu_torch.ops.pyramid import build_pyramid
+from correlation_tpu_torch.ops.seed import (
+    global_guess_from_pair,
+    phase_correlation_guess,
+)
 from correlation_tpu_torch.sequence import (
     FrameRecord,
     SequenceConfig,
@@ -60,4 +72,21 @@ __all__ = [
     "SequenceConfig",
     "run_sequence",
     "run_sequence_from_files",
+    "InterpField",
+    "precompute_field",
+    "sample_field",
+    "field_assemble",
+    "phase_correlation_guess",
+    "global_guess_from_pair",
+    "cli",
 ]
+
+
+def __getattr__(name):
+    # The command line loads on first use, so that `python -m
+    # correlation_tpu_torch.cli` does not find it imported already.
+    if name == "cli":
+        import importlib
+
+        return importlib.import_module("correlation_tpu_torch.cli")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

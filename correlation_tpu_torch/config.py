@@ -87,7 +87,7 @@ class PyramidConfig:
             raise ValueError(f"invalid pyramid schedule {self}")
 
 
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "torch", "field")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,11 +104,15 @@ class SolverConfig:
     lambda_max: float = 1e9
     lambda_up: float = 10.0
     lambda_down: float = 0.4
-    # Where the assembly runs.  The device of the tensors decides: the CUDA
-    # kernel on CUDA tensors, the plain PyTorch version on CPU tensors.
-    # "auto" accepts either; "cuda" requires CUDA tensors and "torch" CPU
-    # tensors, and the solve raises on the other device.  Given numpy input
-    # and no device, "torch" solves on the CPU and "cuda" and "auto" on
+    # Which assembly, and where.  "cuda" and "torch" take the tiled fused
+    # assembly, at most 3 channels: the CUDA kernel on CUDA tensors and its
+    # plain PyTorch version on CPU tensors; "cuda" requires CUDA tensors
+    # and "torch" CPU tensors, and the solve raises on the other device.
+    # "field" takes the coefficient-field assembly (JAX's "xla"; any
+    # number of channels, no tile limit on warps) on the device of the
+    # tensors.  "auto" takes the tiled assembly on either device up to 3
+    # channels and the field assembly above.  Given numpy input and no
+    # device, "torch" solves on the CPU and "cuda", "auto" and "field" on
     # the card, raising where there is none (engine.resolve_device).
     backend: str = "auto"
     # Extra pixels of warp headroom in the per-subset image tiles: warps

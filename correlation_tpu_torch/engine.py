@@ -16,6 +16,15 @@ semantics are the JAX engine's:
     at level-0 scale and chi = FLT_MAX;
   * u, v scale by powers of two between pyramid levels.
 
+Two assemblies.  The tiled one (backends "cuda" and "torch") is the fused
+kernel of ops/assemble_v2.py, which reads a per-subset tile of the
+deformed image and takes at most 3 channels; the coefficient-field one
+(backend "field", JAX's "xla"; ops/assemble.py) samples each level's
+coefficient field, so warps of any size and any number of channels solve.
+"auto" takes the tiled assembly for up to 3 channels and the field above
+(uses_field).  Both return the same [n, 8, 8] Gram, so the LM loop is
+one.
+
 Host loop instead of a device while loop.  JAX runs the LM iterations in a
 lax.while_loop and shrinks the batch with a compaction cascade.  Here each
 iteration takes the index list of the still-active subsets
@@ -38,7 +47,12 @@ import torch
 from correlation_tpu_torch.config import ErrorCode, SolverConfig
 from correlation_tpu_torch.models.warp import translate_params, warp_points
 from correlation_tpu_torch.ops import assemble_v2 as v2
-from correlation_tpu_torch.ops.interp import sample_integer
+from correlation_tpu_torch.ops.assemble import field_assemble
+from correlation_tpu_torch.ops.interp import (
+    InterpField,
+    precompute_field,
+    sample_integer,
+)
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.ops.solve import lm_delta
 
@@ -50,10 +64,11 @@ class LevelArrays(NamedTuple):
 
     center: torch.Tensor  # [S, 2] subset centers at this level
     n_points: torch.Tensor  # [S] float32
-    pix: torch.Tensor  # [S, 8, P] packed pixel rows (v2.pack_pixels)
+    pix: torch.Tensor  # [S, 5 + max(C, 3), P] pixel rows (v2.pack_pixels)
     bbox: torch.Tensor  # [S, 4, 2] undeformed bounding-box corners
-    def_img: torch.Tensor | None  # [Hp, Wp, C] padded deformed image
+    def_img: torch.Tensor | None  # tiled: [Hp, Wp, C] padded deformed image
     img_hw: tuple[int, int]  # true deformed-image dims
+    def_field: InterpField | None = None  # field: the deformed image's
 
 
 class LevelStatic(NamedTuple):
@@ -82,8 +97,17 @@ class CorrelationResult(NamedTuple):
     n_points: torch.Tensor  # [S] int32 level-0 point counts
 
 
-def _make_assemble(cfg: SolverConfig, level: LevelArrays, static: LevelStatic):
-    """assemble(params [S, NP], idx int32 [n]) -> [n, 8, 8]."""
+def _make_assemble(cfg: SolverConfig, level: LevelArrays,
+                   static: LevelStatic | None):
+    """assemble(params [S, NP], idx int32 [n]) -> [n, 8, 8]: the field
+    assembly where the level carries a field, else the tiled one."""
+    if level.def_field is not None:
+        def assemble(params, idx):
+            return field_assemble(cfg.model, cfg.interpolation,
+                                  level.def_field, level.pix, level.center,
+                                  params, idx)
+
+        return assemble
     device = level.def_img.device
     need = {"cuda": "cuda", "torch": "cpu"}.get(cfg.backend)
     if need is not None and device.type != need:
@@ -127,13 +151,14 @@ def solve_level(
     level: LevelArrays,
     params0: torch.Tensor,
     skip: torch.Tensor,
-    static: LevelStatic,
+    static: LevelStatic | None = None,
 ) -> LevelResult:
     """The LM loop of one pyramid level over all subsets.
 
     params0: [S, NP] guesses at this level's scale; skip: [S] bool, subsets
     frozen by earlier failures, left untouched (their rows of the result
-    are not meaningful and are not read by correlate_prepared).
+    are not meaningful and are not read by correlate_prepared); static:
+    the level's tile dims (the tiled assembly only).
     """
     s, num_p = params0.shape
     dev = params0.device
@@ -266,28 +291,38 @@ def prepare_levels(
     xy_levels: list,
     mask_levels: list,
     center0: torch.Tensor,
-    statics: dict[int, LevelStatic],
+    statics: dict[int, LevelStatic] | None,
     skip_def: bool = False,
 ) -> dict[int, LevelArrays]:
     """LevelArrays for every level in the schedule: undeformed intensities
-    sampled once per level, pixel rows packed for the kernel, and (unless
-    skip_def) the deformed image padded to the tile dims."""
+    sampled once per level, pixel rows packed, and (unless skip_def) the
+    deformed image: padded to the tile dims of `statics` for the tiled
+    assembly, or, with statics None, its coefficient field for the field
+    assembly."""
     out = {}
     for lvl in cfg.pyramid.levels_coarse_to_fine():
         xy, mask = xy_levels[lvl], mask_levels[lvl]
-        st = statics[lvl]
         center = center0 / float(1 << lvl)
         und_w = sample_integer(und_pyramid[lvl], xy) * mask[..., None]
+        dfm = def_pyramid[lvl]
+        def_img = def_field = None
+        if statics is None:
+            img_hw = (int(dfm.shape[-3]), int(dfm.shape[-2]))
+            if not skip_def:
+                def_field = precompute_field(dfm, cfg.interpolation)
+        else:
+            st = statics[lvl]
+            img_hw = (st.img_h, st.img_w)
+            if not skip_def:
+                def_img = v2.prepare_image(dfm, st.tile_h, st.tile_w)
         out[lvl] = LevelArrays(
             center=center,
             n_points=mask.sum(dim=-1).to(torch.float32),
             pix=v2.pack_pixels(xy, mask, und_w, center),
             bbox=v2.subset_bbox(xy, mask),
-            def_img=(
-                None if skip_def
-                else v2.prepare_image(def_pyramid[lvl], st.tile_h, st.tile_w)
-            ),
-            img_hw=(st.img_h, st.img_w),
+            def_img=def_img,
+            img_hw=img_hw,
+            def_field=def_field,
         )
     return out
 
@@ -298,11 +333,12 @@ def correlate_prepared(
     params0: torch.Tensor,
     center0: torch.Tensor,
     n_points0: torch.Tensor,
-    statics: dict[int, LevelStatic],
+    statics: dict[int, LevelStatic] | None,
 ) -> CorrelationResult:
     """Coarse-to-fine solve given prepared per-level arrays.
 
-    params0: [S, NP] guesses at level-0 scale.
+    params0: [S, NP] guesses at level-0 scale; statics: the tile dims per
+    level, None for the field assembly.
     """
     s = params0.shape[0]
     dev = params0.device
@@ -318,7 +354,8 @@ def correlate_prepared(
 
     for lvl in cfg.pyramid.levels_coarse_to_fine():
         p = translate_params(p, prev_level, lvl)
-        res = solve_level(cfg, levels[lvl], p, frozen, statics[lvl])
+        res = solve_level(cfg, levels[lvl], p, frozen,
+                          None if statics is None else statics[lvl])
         newly = res.init_fail & ~frozen
         final_params = torch.where(
             newly[:, None], translate_params(p, lvl, 0), final_params
@@ -347,9 +384,9 @@ def correlate_prepared(
 
 def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
     """Where a solve runs: `device` when the caller names one, else the
-    device of `like` when it is a tensor, else the card for backend "cuda"
-    and "auto" (raising RuntimeError when there is none) and the CPU for
-    backend "torch"."""
+    device of `like` when it is a tensor, else the card for backends
+    "cuda", "auto" and "field" (raising RuntimeError when there is none)
+    and the CPU for backend "torch"."""
     if device is not None:
         return torch.device(device)
     if torch.is_tensor(like):
@@ -365,21 +402,29 @@ def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
     return torch.device("cuda")
 
 
-MAX_CHANNELS = 3
+MAX_CHANNELS = 3  # the tiled assembly's (the fused kernel's) limit
 
 
-def check_channels(shape, what: str) -> None:
+def uses_field(cfg: SolverConfig, channels: int) -> bool:
+    """Whether images of `channels` channels take the coefficient-field
+    assembly: backend "field", and "auto" above MAX_CHANNELS (as the JAX
+    package's "auto" leaves its fused kernel for them)."""
+    return cfg.backend == "field" or (
+        cfg.backend == "auto" and channels > MAX_CHANNELS)
+
+
+def check_channels(cfg: SolverConfig, shape, what: str) -> None:
     """Raise ValueError, before any work on the device, when images of
-    `shape` (channels last) carry more channels than the fused assembly
-    takes.  The JAX package solves them on its separable-field backend;
-    the port's coefficient-field assembly (ROADMAP.md Queue 1, item 13)
-    is the path that will lift the limit."""
-    if shape[-1] > MAX_CHANNELS:
+    `shape` (channels last) carry more channels than the chosen assembly
+    takes: the tiled one (backends "cuda" and "torch") takes at most
+    MAX_CHANNELS; "auto" and "field" solve any number on the
+    coefficient-field assembly."""
+    if shape[-1] > MAX_CHANNELS and not uses_field(cfg, shape[-1]):
         raise ValueError(
-            f"{what} have {shape[-1]} channels; the solver takes at most "
-            f"{MAX_CHANNELS} (the fused assembly's limit) until the "
-            "coefficient-field assembly is ported (ROADMAP.md Queue 1, "
-            "item 13)")
+            f"{what} have {shape[-1]} channels; backend {cfg.backend!r} "
+            f"takes at most {MAX_CHANNELS} (the fused assembly's limit); "
+            "backends 'auto' and 'field' solve them on the "
+            "coefficient-field assembly")
 
 
 def _as_f32(a, device):
@@ -420,11 +465,12 @@ def correlate_many(
 ) -> list[CorrelationResult]:
     """Solve several independent domains over one frame pair.
 
-    The pyramids are cast to `device` once; each domain keeps its own tile
-    dims per level (compute_level_statics), so a big blob beside small
-    sectors does not widen their tiles, as combine_batches would; the
-    domains solve one after another.  Each result equals the domain's own
-    correlate call bit for bit.
+    The pyramids are cast to `device` once.  On the tiled assembly each
+    domain keeps its own tile dims per level (compute_level_statics), so a
+    big blob beside small sectors does not widen their tiles, as
+    combine_batches would; on the field assembly the fields are built once
+    for all domains.  The domains solve one after another.  Each result
+    equals the domain's own correlate call bit for bit.
 
     batches: domains.SubsetBatch list; params0_list: per-domain [S_i, NP]
     guesses at level-0 scale; device: as correlate.
@@ -434,18 +480,29 @@ def correlate_many(
         raise ValueError(
             f"{len(batches)} batches but {len(params0_list)} guesses"
         )
-    check_channels(np.shape(und_pyramid[0]), "the undeformed images")
-    check_channels(np.shape(def_pyramid[0]), "the deformed images")
+    check_channels(cfg, np.shape(und_pyramid[0]), "the undeformed images")
+    check_channels(cfg, np.shape(def_pyramid[0]), "the deformed images")
     device = resolve_device(cfg, device, und_pyramid[0])
     und = [_as_f32(a, device) for a in und_pyramid]
     dfm = [_as_f32(a, device) for a in def_pyramid]
+    fields = None
+    if uses_field(cfg, dfm[0].shape[-1]):
+        fields = {lvl: precompute_field(dfm[lvl], cfg.interpolation)
+                  for lvl in cfg.pyramid.levels_coarse_to_fine()}
     out = []
     for subsets, params0 in zip(batches, params0_list):
-        statics = compute_level_statics(cfg, subsets, dfm)
         batch = subsets.to_device(device)
-        levels = prepare_levels(
-            cfg, und, dfm, batch.xy, batch.mask, batch.center0, statics
-        )
+        if fields is None:
+            statics = compute_level_statics(cfg, subsets, dfm)
+            levels = prepare_levels(
+                cfg, und, dfm, batch.xy, batch.mask, batch.center0, statics
+            )
+        else:
+            statics = None
+            levels = prepare_levels(cfg, und, dfm, batch.xy, batch.mask,
+                                    batch.center0, None, skip_def=True)
+            levels = {lvl: a._replace(def_field=fields[lvl])
+                      for lvl, a in levels.items()}
         out.append(correlate_prepared(
             cfg, levels, _as_f32(params0, device), batch.center0,
             batch.mask[0].sum(dim=-1), statics,
@@ -507,28 +564,34 @@ def correlate_frames(
     p_seed / prev_seed / chi_seed / it_seed / off_seed / ucen_seed: the
     state entering the chunk (defaults: guess0, guess0, zeros, zeros, zeros,
     subsets.center0); interop converts a JAX carry.  statics: per-level
-    LevelStatic (default: from the stack's shape).
+    LevelStatic of the tiled assembly (default: from the stack's shape).
+    On the field assembly (uses_field) each pair's deformed levels get
+    their coefficient fields in the frame loop, never the whole stack's
+    at once (one bicubic field of a 1024 x 1024 frame is 67 MB).
 
     Returns the stacked per-frame params, guess, chi, iterations, error
     ([K, S, ...]), the packed [K, S, NP + 3] output (params, chi,
     iterations, error), and the carry (p, prev, chi, iterations, plus off
     and ucen for lagrangian) for the next chunk.
     """
-    check_channels(np.shape(frames_stack), "the frames")
+    check_channels(cfg, np.shape(frames_stack), "the frames")
     device = resolve_device(cfg, device, frames_stack)
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1
     pyr = build_pyramid(frames, cfg.pyramid.stop)
-    if statics is None:
+    field = uses_field(cfg, frames.shape[-1])
+    if field:
+        statics = None
+    elif statics is None:
         statics = compute_level_statics(cfg, subsets, pyr)
     batch = subsets.to_device(device)
     s = batch.num_subsets
     schedule = cfg.pyramid.levels_coarse_to_fine()
 
     # Frame-invariant work leaves the frame loop: the padded deformed
-    # levels of the whole stack and, for the Eulerian reference-First
-    # chain, the reference frame's level arrays.
-    prepped = {
+    # levels of the whole stack (tiled) and, for the Eulerian
+    # reference-First chain, the reference frame's level arrays.
+    prepped = None if field else {
         lvl: v2.prepare_image(pyr[lvl], statics[lvl].tile_h,
                               statics[lvl].tile_w)
         for lvl in schedule
@@ -589,8 +652,12 @@ def correlate_frames(
             und = und0 if reference_first else [level[i] for level in pyr]
             levels = prepare_levels(cfg, und, und, xy_i, batch.mask,
                                     center_i, statics, skip_def=True)
-        levels = {lvl: levels[lvl]._replace(def_img=prepped[lvl][i + 1])
-                  for lvl in schedule}
+        if field:
+            levels = {lvl: levels[lvl]._replace(def_field=precompute_field(
+                pyr[lvl][i + 1], cfg.interpolation)) for lvl in schedule}
+        else:
+            levels = {lvl: levels[lvl]._replace(def_img=prepped[lvl][i + 1])
+                      for lvl in schedule}
         res = correlate_prepared(cfg, levels, guess, center_i, n_points0,
                                  statics)
         p_new, chi_new, it_new = res.params, res.chi, res.iterations

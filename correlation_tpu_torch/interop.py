@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from correlation_tpu_torch.config import (
+    BACKENDS,
     DeformationDescription,
     DomainType,
     ErrorMode,
@@ -32,8 +33,10 @@ from correlation_tpu_torch.domains import (
     _level_extents,
 )
 
-# JAX assembly backends; all of them map to the port's "auto", which picks
-# the CUDA kernel or its plain version by the device of the tensors.
+# JAX assembly backends.  "xla", the coefficient-field assembly, maps to
+# the port's "field"; the others map to "auto", which picks the CUDA
+# kernel or its plain version by the device of the tensors (and the field
+# assembly above 3 channels).
 _JAX_BACKENDS = ("auto", "pallas", "pallas_dma", "xla_sep", "xla")
 # JAX SolverConfig fields the port has no counterpart for: they schedule
 # the straggler compaction of the JAX while loop, which leaves every
@@ -86,8 +89,10 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
     are dropped."""
     d = {k: v for k, v in d.items() if k not in JAX_ONLY_FIELDS}
     backend = d.pop("backend", "auto")
-    if backend not in _JAX_BACKENDS and backend not in ("cuda", "torch"):
+    if backend not in _JAX_BACKENDS and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "xla":
+        backend = "field"
     pyramid = d.pop("pyramid", {})
     if not isinstance(pyramid, PyramidConfig):
         pyramid = PyramidConfig(**dict(pyramid))
@@ -97,7 +102,7 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
         model=model,
         interpolation=interp,
         pyramid=pyramid,
-        backend=backend if backend in ("cuda", "torch") else "auto",
+        backend=backend if backend in BACKENDS else "auto",
         **d,
     )
 

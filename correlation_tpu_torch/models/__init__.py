@@ -1,5 +1,7 @@
 from correlation_tpu_torch.models.warp import (
+    best_rotation_affine,
     num_params,
+    rotation_angle,
     steepest_descent,
     translate_params,
     warp_jacobian,
@@ -11,5 +13,7 @@ __all__ = [
     "warp_jacobian",
     "steepest_descent",
     "translate_params",
+    "best_rotation_affine",
+    "rotation_angle",
     "num_params",
 ]

@@ -97,5 +97,23 @@ def translate_params(params, src_level: int, dst_level: int):
     return params * scale
 
 
+def best_rotation_affine(params):
+    """Best-fit rotation angle of AFFINE parameters [..., 6]:
+    atan2(vx - uy, ux + vy + 2)."""
+    return torch.atan2(params[..., 4] - params[..., 3],
+                       params[..., 2] + params[..., 5] + 2.0)
+
+
+def rotation_angle(model: FittingModel, params):
+    """The rotation angle reported per model: 0 for U / UV, q for UVQ, the
+    best-fit rotation for AFFINE.  params [..., NP] -> [...]."""
+    if model in (FittingModel.U, FittingModel.UV):
+        return torch.zeros(params.shape[:-1], dtype=torch.float32,
+                           device=params.device)
+    if model == FittingModel.UVQ:
+        return params[..., 2]
+    return best_rotation_affine(params)
+
+
 def num_params(model: FittingModel) -> int:
     return NUM_PARAMS[model]

@@ -158,11 +158,11 @@ def subset_bbox(xy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def pack_pixels(xy, mask, und_w, center) -> torch.Tensor:
-    """[S, 8, P] float32 rows x, y, mask, x - cx, y - cy, und per channel
-    (zero rows for missing channels).  und_w: [S, P, C] with C <= 3."""
+    """[S, 5 + max(C, 3), P] float32 rows x, y, mask, x - cx, y - cy, und
+    per channel (zero rows for missing channels).  und_w: [S, P, C].  The
+    kernel takes C <= 3, so 8 rows; the coefficient-field assembly
+    (ops/assemble.py) takes any C."""
     channels = und_w.shape[-1]
-    if channels > 3:
-        raise ValueError(f"at most 3 channels supported, got {channels}")
     maskf = mask.to(torch.float32)
     und_rows = [und_w[..., c] for c in range(channels)]
     und_rows += [torch.zeros_like(maskf)] * (3 - channels)

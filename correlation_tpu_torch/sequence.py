@@ -386,7 +386,7 @@ def run_sequence(
       One FrameRecord per frame pair solved.
     """
     n_frames = len(frames)
-    check_channels(np.shape(frames[0]), "the frames")
+    check_channels(cfg.solver, np.shape(frames[0]), "the frames")
     solver = cfg.solver
     model = solver.model
     num_params = solver.num_params

@@ -1,1 +1,1 @@
-"""Host utilities of the port: checkpoints and timing."""
+"""Host utilities of the port: checkpoints, timing and tracing."""

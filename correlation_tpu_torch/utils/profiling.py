@@ -1,4 +1,8 @@
-"""Throughput metering and card timing.
+"""Tracing, throughput metering and card timing.
+
+trace_region and start_trace / stop_trace are the JAX package's profiler
+hooks on torch.profiler: a region is a record_function range (and an NVTX
+range once the card is in use), and a trace is a Chrome trace file.
 
 SolveMeter is the JAX package's always-on solves/s meter
 (correlation_tpu/utils/profiling.py).  PyTorch returns from a CUDA call
@@ -18,10 +22,56 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 import subprocess
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def trace_region(name: str):
+    """Name a host-side region in a torch.profiler trace, and in NVTX
+    (for external CUDA profilers) once the card is in use.  A CPU-only
+    build never touches torch.cuda.nvtx."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_initialized():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
+
+
+_TRACE: list = []  # the running trace: [(profiler, logdir)]
+
+
+def start_trace(logdir: str) -> None:
+    """Start a torch.profiler trace of the host and, where there is a card,
+    the device; stop_trace writes it into `logdir`."""
+    if _TRACE:
+        raise RuntimeError("a trace is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _TRACE.append((prof, logdir))
+
+
+def stop_trace() -> str:
+    """Stop the running trace and write it as a Chrome trace (JSON) into
+    its logdir; returns the file's path."""
+    if not _TRACE:
+        raise RuntimeError("no trace is running")
+    prof, logdir = _TRACE.pop()
+    prof.stop()
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _sync() -> None:

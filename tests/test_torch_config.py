@@ -135,7 +135,9 @@ def test_import_leaves_jax_out():
         "correlation_tpu_torch.report, correlation_tpu_torch.utils.checkpoint, "
         "correlation_tpu_torch.utils.profiling, "
         "correlation_tpu_torch.experiments.exp_gather, "
-        "correlation_tpu_torch.experiments.exp_matmul_overhead; "
+        "correlation_tpu_torch.experiments.exp_matmul_overhead, "
+        "correlation_tpu_torch.cli, correlation_tpu_torch.viz, "
+        "correlation_tpu_torch.ops.seed, correlation_tpu_torch.ops.assemble; "
         "bad = [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]; "
         "print(bad); assert not bad; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -275,30 +275,41 @@ def test_resolve_device_rule(monkeypatch):
     "entry", ["correlate_many", "correlate_frames", "run_sequence"])
 def test_more_than_three_channels_raise_before_device_work(monkeypatch,
                                                            entry):
-    """Four channels raise a ValueError that names the 3-channel limit
-    before a device is even chosen.  (The JAX package solves them on its
-    separable-field backend; ROADMAP.md lists the difference.)"""
+    """Four channels under the tiled assembly's backends ("cuda", "torch")
+    raise a ValueError that names the 3-channel limit before a device is
+    even chosen; "auto" and "field" solve them on the coefficient-field
+    assembly, and recover the motion."""
     from correlation_tpu_torch import sequence
 
     def no_device(*args, **kwargs):
         raise AssertionError("device work before the channel check")
 
-    monkeypatch.setattr(engine, "resolve_device", no_device)
-    monkeypatch.setattr(sequence, "resolve_device", no_device)
     und, dfm, batch = _one_subset_problem()
     und4, dfm4 = np.repeat(und, 4, axis=-1), np.repeat(dfm, 4, axis=-1)
-    cfg = SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0))
-    with pytest.raises(ValueError, match="4 channels.*at most 3"):
+
+    def run(backend):
+        cfg = SolverConfig(model=FittingModel.UV,
+                           pyramid=PyramidConfig(0, 1, 0), backend=backend)
         if entry == "correlate_many":
-            engine.correlate_many(cfg, [und4], [dfm4], [batch],
-                                  [np.zeros((1, 2))], device="cpu")
-        elif entry == "correlate_frames":
-            engine.correlate_frames(cfg, np.stack([und4, dfm4]), batch,
-                                    np.zeros((1, 2)), device="cpu")
-        else:
-            sequence.run_sequence(
-                [und4, dfm4], [_grid(20, 20, 40, 40)],
-                sequence.SequenceConfig(solver=cfg), device="cpu")
+            return engine.correlate_many(cfg, [und4], [dfm4], [batch],
+                                         [np.zeros((1, 2))],
+                                         device="cpu")[0].params.numpy()[0]
+        if entry == "correlate_frames":
+            return engine.correlate_frames(
+                cfg, np.stack([und4, dfm4]), batch, np.zeros((1, 2)),
+                device="cpu")["params"].numpy()[0, 0]
+        return sequence.run_sequence(
+            [und4, dfm4], [_grid(20, 20, 40, 40)],
+            sequence.SequenceConfig(solver=cfg), device="cpu")[0].params[0]
+
+    with monkeypatch.context() as m:
+        m.setattr(engine, "resolve_device", no_device)
+        m.setattr(sequence, "resolve_device", no_device)
+        for backend in ("cuda", "torch"):
+            with pytest.raises(ValueError, match="4 channels.*at most 3"):
+                run(backend)
+    for backend in ("auto", "field"):
+        np.testing.assert_allclose(run(backend), [0.4, 0.2], atol=0.02)
 
 
 def test_torch_backend_frames_on_the_cpu_by_default():
