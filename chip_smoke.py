@@ -77,7 +77,25 @@ Phases, one informational line each:
      --profile, checked against the known motion, the overlay files and the
      trace file; then --auto-guess on a pair shifted by 40 px, beyond the
      3-level pyramid's capture range, which must recover the shift within
-     0.02 px; with each wall time.
+     0.02 px; and the first run again with --shard under torchrun (NCCL, a
+     world of one), whose report must equal the unsharded one; with each
+     wall time;
+ 12. mesh: the subset-sharded solves and the pixel-sharded assembly over
+     torch.distributed (correlation_tpu_torch.parallel), each rank a
+     subprocess of this script (--mesh-worker) under a timeout: (a) NCCL,
+     a world of one on cuda:0, and (b) gloo, two ranks sharing cuda:0
+     (NCCL refuses two ranks on one card), each solving phase 5's chunk
+     with mesh= (K1 launched at every level on every rank, the result on
+     the card and equal bit for bit to phase 5's, passed through a file
+     under build/), first checked, then timed (the world of one four
+     times in turns with the unsharded chunk in its own process); with
+     gloo also phase 8's three sequence modes with mesh=, equal bit for
+     bit to phase 8's records, the Lagrangian one again cancelled by a
+     should_stop polled on rank 0 alone (its one record equal to phase
+     8's first), and assemble_pixel_sharded on the blob's level-0
+     pixels, within JAX's test tolerances of the unsharded field
+     assembly on the card and identical on a second call; each wall and
+     the chunk's solves/s beside phase 6's.
 Then a JSON line with the kernel records (K1 at each level of the dense
 grid and of the blob, K2, the five stages): launches on the main path
 (K1: its level's, with the mean subsets a launch and the threads a
@@ -92,6 +110,7 @@ device, or a directory without the package.
 
 import dataclasses
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -388,29 +407,13 @@ def sequence_phase(torch, dev, smi, v2):
     """run_sequence in three modes on the drifting sequence."""
     import numpy as np
 
-    from correlation_tpu_torch.config import (
-        DeformationDescription,
-        ReferenceImage,
-    )
     from correlation_tpu_torch.problems import sequence_problem
-    from correlation_tpu_torch.sequence import SequenceConfig, run_sequence
+    from correlation_tpu_torch.sequence import run_sequence
     from correlation_tpu_torch.utils.profiling import SolveMeter
 
     cfg, frames, pts, centers = sequence_problem(NUM_SUBSETS, SEQ_PAIRS)
-    lagr, strict = (DeformationDescription.LAGRANGIAN,
-                    DeformationDescription.STRICT_LAGRANGIAN)
-    prev = ReferenceImage.PREVIOUS
-    modes = [
-        ("eulerian-first", SequenceConfig(solver=cfg, frame_chunk=SEQ_PAIRS),
-         SEQ_PAIRS, True),
-        ("lagrangian-previous",
-         SequenceConfig(solver=cfg, deformation=lagr, reference=prev,
-                        frame_chunk=SEQ_PAIRS), SEQ_PAIRS, False),
-        ("strict-lagrangian-per-frame",
-         SequenceConfig(solver=cfg, deformation=strict, reference=prev),
-         STRICT_PAIRS, False),
-    ]
-    for name, scfg, pairs, accumulates in modes:
+    records = {}
+    for name, scfg, pairs, accumulates in sequence_modes(cfg):
         meter = SolveMeter()
         torch.cuda.synchronize()
         v2.reset_launches()
@@ -421,6 +424,8 @@ def sequence_phase(torch, dev, smi, v2):
         wall = time.perf_counter() - t0
         launches = v2.LAUNCHES
         check(len(recs) == pairs, f"{name}: {len(recs)} records of {pairs}")
+        records.update({f"{name}/{k}": v
+                        for k, v in record_arrays(recs).items()})
         params = np.stack([r.params for r in recs])
         errors = np.stack([r.error for r in recs])
         check(launches > 0, f"{name}: the sequence launched no kernel")
@@ -454,6 +459,7 @@ def sequence_phase(torch, dev, smi, v2):
               f"of the motion; card vs CPU plain ({CPU_SUBSETS} subsets x 2 "
               f"pairs): max |dp| {p_diff:.3e}, {mismatch} iteration/error "
               f"mismatches of {g['error'].size}")
+    return records
 
 
 def level_shapes(cfg, pts, frames, dev):
@@ -986,10 +992,11 @@ def surface_phase(torch, smi):
             paths.append(str(work / f"frame_{t}.png"))
             Image.fromarray(f[..., 0]).save(paths[-1])
 
-        def cli(args, what):
+        def cli(args, what, launcher=()):
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [sys.executable, "-m", "correlation_tpu_torch.cli", *args],
+                [sys.executable, *launcher, "-m", "correlation_tpu_torch.cli",
+                 *args],
                 cwd=REPO, capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
             check(proc.returncode == 0,
@@ -999,11 +1006,20 @@ def surface_phase(torch, smi):
 
         report = work / "drift.csv"
         plots, prof = work / "plots", work / "trace"
-        wall = cli(paths + ["--rect", "100", "100", "900", "880",
-                            "--subdivisions", "16", "16", "--report",
-                            str(report), "--plot-dir", str(plots),
-                            "--plot-points", "--profile", str(prof)],
-                   "drift")
+        grid = ["--rect", "100", "100", "900", "880", "--subdivisions", "16",
+                "16"]
+        wall = cli(paths + grid + ["--report", str(report), "--plot-dir",
+                                   str(plots), "--plot-points", "--profile",
+                                   str(prof)], "drift")
+        # The same run with --shard under torchrun: NCCL, a world of one
+        # (one card), whose report must equal the unsharded run's.
+        sharded = work / "drift_shard.csv"
+        wall_shard = cli(paths + grid + ["--report", str(sharded), "--shard"],
+                         "drift --shard",
+                         ("-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node=1"))
+        check(sharded.read_bytes() == report.read_bytes(),
+              "drift --shard: the report differs from the unsharded run's")
         with open(report) as f:
             rows = list(csv.DictReader(f))
         check(len(rows) == 7 * 256, f"drift: {len(rows)} report rows")
@@ -1055,12 +1071,324 @@ def surface_phase(torch, smi):
               f"card: 8 drifting 1024x1024 PNG frames, 16 x 16 sectors, "
               f"report + {len(names)} overlays + trace ({len(events)} events, "
               f"{kernels} device kernels) in {wall:.2f} s wall, median (u, v) "
-              f"within {worst:.5f} of the drift; --auto-guess on a 40 px "
+              f"within {worst:.5f} of the drift; the same under torchrun "
+              f"with --shard (NCCL, a world of one, no overlays or trace): "
+              f"the same report in {wall_shard:.2f} s wall; --auto-guess on "
+              f"a 40 px "
               f"shift: 256 sectors within {off:.5f} px of (40, 0) in "
               f"{wall_seed:.2f} s wall; phase wall "
               f"{time.perf_counter() - phase_t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+MESH_DIR = REPO / "build" / "smoke_mesh"
+MESH_WORKER_TIMEOUT_S = 300
+RECORD_FIELDS = ("params", "initial_guess", "chi", "iterations", "error",
+                 "n_points", "und_center", "def_center", "und_angle",
+                 "def_angle", "und_global_center", "def_global_center",
+                 "und_global_angle", "def_global_angle")
+
+
+def record_arrays(recs):
+    """A run's FrameRecords as {field: numpy array stacked over pairs}."""
+    import numpy as np
+
+    return {k: np.stack([np.asarray(getattr(r, k)) for r in recs])
+            for k in RECORD_FIELDS}
+
+
+def sequence_modes(cfg):
+    """Phase 8's three run_sequence modes: (name, SequenceConfig, pairs,
+    whether the motion accumulates)."""
+    from correlation_tpu_torch.config import (
+        DeformationDescription,
+        ReferenceImage,
+    )
+    from correlation_tpu_torch.sequence import SequenceConfig
+
+    prev = ReferenceImage.PREVIOUS
+    return [
+        ("eulerian-first", SequenceConfig(solver=cfg, frame_chunk=SEQ_PAIRS),
+         SEQ_PAIRS, True),
+        ("lagrangian-previous",
+         SequenceConfig(solver=cfg,
+                        deformation=DeformationDescription.LAGRANGIAN,
+                        reference=prev, frame_chunk=SEQ_PAIRS),
+         SEQ_PAIRS, False),
+        ("strict-lagrangian-per-frame",
+         SequenceConfig(solver=cfg,
+                        deformation=DeformationDescription.STRICT_LAGRANGIAN,
+                        reference=prev),
+         STRICT_PAIRS, False),
+    ]
+
+
+def mesh_worker(backend, rank, size, port):
+    """One rank of phase 12, started by mesh_phase as `chip_smoke.py
+    --mesh-worker BACKEND RANK SIZE PORT`: join the group, solve phase 5's
+    chunk over the mesh on cuda:0 (twice: checked, then timed), and with
+    gloo phase 8's sequences and the blob's pixel-sharded assembly; each
+    result is held bit for bit against the single-process run's, read
+    from MESH_DIR.  Prints its readings as a JSON line, last."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from correlation_tpu_torch.config import FittingModel, Interpolation
+    from correlation_tpu_torch.domains import make_batch
+    from correlation_tpu_torch.engine import (
+        compute_level_statics,
+        correlate_frames,
+    )
+    from correlation_tpu_torch.ops import assemble_v2 as v2
+    from correlation_tpu_torch.ops.assemble import field_assemble
+    from correlation_tpu_torch.ops.interp import (
+        precompute_field,
+        sample_integer,
+    )
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.parallel import (
+        assemble_pixel_sharded,
+        init_distributed,
+        make_mesh,
+    )
+    from correlation_tpu_torch.parallel.mesh import barrier
+    from correlation_tpu_torch.problems import (
+        blob_problem,
+        dense_grid_problem,
+        sequence_problem,
+    )
+    from correlation_tpu_torch.sequence import run_sequence
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The ranks share the host's cores, as torchrun's one thread a rank.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    check(init_distributed(f"127.0.0.1:{port}", size, rank, backend=backend),
+          "init_distributed did not join a group")
+    mesh = make_mesh("cuda:0")
+    check((mesh.rank, mesh.size) == (rank, size), f"mesh {mesh}")
+    dev = mesh.device
+    got = {"rank": rank, "size": size, "backend": backend}
+
+    def timed(fn):
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        barrier(mesh)
+        return out, time.perf_counter() - t0
+
+    # Phase 5's chunk over the mesh: every level's kernel on this rank,
+    # the result on the card and equal to phase 5's bit for bit.
+    cfg, und, dfm, batch, params0 = dense_grid_problem(NUM_SUBSETS)
+    stack = np.stack([und] + [dfm] * FRAMES)[..., None].astype(np.uint8)
+    stack_dev = torch.from_numpy(stack).to(dev)
+    statics = compute_level_statics(
+        cfg, batch, build_pyramid(stack_dev[:1].float(), cfg.pyramid.stop))
+    shapes = {lvl: (batch.xy[lvl].shape[1], st.tile_h, st.tile_w)
+              for lvl, st in statics.items()}
+    v2.reset_launches()
+
+    def chunk():
+        return correlate_frames(cfg, stack_dev, batch, params0, device=dev,
+                                mesh=mesh)
+
+    out, got["chunk_first_s"] = timed(chunk)
+    by_level = {lvl: list(v2.LAUNCHES_BY_SHAPE.get(k, [0, 0]))
+                for lvl, k in shapes.items()}
+    check(all(k > 0 for k, _ in by_level.values()),
+          f"rank {rank}: a level's kernel was never launched: {by_level}")
+    check(all(m <= NUM_SUBSETS // size * k for k, m in by_level.values()),
+          f"rank {rank}: a launch assembled more than its shard: {by_level}")
+    got["launches"] = {f"L{lvl}": k for lvl, (k, _) in by_level.items()}
+    got["subsets_a_launch"] = {f"L{lvl}": m / k
+                               for lvl, (k, m) in by_level.items()}
+    ref = np.load(MESH_DIR / "phase5.npz")
+    for key in ref.files:
+        check(out[key].device == dev, f"{key} left the card")
+        check(np.array_equal(out[key].cpu().numpy(), ref[key]),
+              f"rank {rank}: the chunk's {key} differs from phase 5's")
+    if size == 1:
+        # In turns with the unsharded chunk in this same process (plain,
+        # mesh, mesh, plain, twice), so that the mesh's own cost shows
+        # apart from the process and the machine.
+        def plain():
+            return correlate_frames(cfg, stack_dev, batch, params0,
+                                    device=dev)
+
+        order = (plain, chunk, chunk, plain) * 2
+        turns = [timed(fn)[1] for fn in order]
+        got["chunk_turns_s"] = {
+            "mesh": [t for fn, t in zip(order, turns) if fn is chunk],
+            "plain": [t for fn, t in zip(order, turns) if fn is plain]}
+        got["chunk_s"] = float(np.median(got["chunk_turns_s"]["mesh"]))
+        got["chunk_plain_s"] = float(np.median(got["chunk_turns_s"]["plain"]))
+    else:
+        _, got["chunk_s"] = timed(chunk)
+    del out, stack_dev
+
+    if backend == "gloo":
+        # Phase 8's sequences over the mesh, equal to its records.
+        scfg, frames, pts, centers = sequence_problem(NUM_SUBSETS, SEQ_PAIRS)
+        ref = np.load(MESH_DIR / "phase8.npz")
+        got["sequences"] = {}
+        for name, seq_cfg, pairs, _ in sequence_modes(scfg):
+            v2.reset_launches()
+            recs, wall = timed(lambda: run_sequence(
+                InMemoryFrames(frames[: pairs + 1]), pts, seq_cfg,
+                centers=centers, device=dev, mesh=mesh))
+            check(v2.LAUNCHES > 0, f"rank {rank} {name}: no kernel launch")
+            rec = record_arrays(recs)
+            for key, val in rec.items():
+                check(np.array_equal(val, ref[f"{name}/{key}"]),
+                      f"rank {rank} {name}: {key} differs from phase 8's")
+            got["sequences"][name] = {"wall_s": wall, "pairs": pairs,
+                                      "launches": v2.LAUNCHES}
+
+        # Cancelled by should_stop, polled on rank 0 alone (it raises
+        # elsewhere) and broadcast as a CUDA tensor: True from its second
+        # poll, which comes after the first chunk is solved, so the run
+        # emits that chunk's first record and stops; equal to phase 8's.
+        polls = []
+
+        def stop():
+            check(rank == 0, f"should_stop polled on rank {rank}")
+            polls.append(1)
+            return len(polls) >= 2
+
+        name, seq_cfg, _, _ = sequence_modes(scfg)[1]
+        recs = run_sequence(InMemoryFrames(frames), pts, seq_cfg,
+                            centers=centers, device=dev, mesh=mesh,
+                            should_stop=stop)
+        check(len(recs) == 1, f"stopped run: {len(recs)} records, not 1")
+        for key, val in record_arrays(recs).items():
+            check(np.array_equal(val, ref[f"{name}/{key}"][:1]),
+                  f"rank {rank} stopped run: {key} differs from phase 8's")
+        got["stopped_polls"] = len(polls)
+
+        # The blob's level-0 pixels, pixel-sharded, against the unsharded
+        # field assembly on the card, off the solution so that b and chi
+        # are not zero.
+        _, bframes, bpts, _ = blob_problem(1)
+        b0 = make_batch(bpts, None, 0)
+        xy = torch.from_numpy(b0.xy[0]).to(dev)
+        mask = torch.from_numpy(b0.mask[0]).to(dev)
+        center = torch.from_numpy(b0.center0).to(dev)
+        img = torch.from_numpy(bframes[:2]).to(dev).float()
+        field = precompute_field(img[1], Interpolation.BICUBIC)
+        und_w = sample_integer(img[0], xy) * mask[..., None]
+        params = torch.tensor([[0.3, 0.8, 0.001, 0.0005, -0.0005, -0.001]],
+                              device=dev)
+        args = (FittingModel.AFFINE, Interpolation.BICUBIC, field, und_w, xy,
+                mask, center, params)
+        first, got["pixel_first_s"] = timed(
+            lambda: assemble_pixel_sharded(mesh, *args))
+        second, got["pixel_s"] = timed(
+            lambda: assemble_pixel_sharded(mesh, *args))
+        whole = field_assemble(FittingModel.AFFINE, Interpolation.BICUBIC,
+                               field, v2.pack_pixels(xy, mask, und_w, center),
+                               center, params)
+        want = (whole[:, :6, :6], whole[:, :6, 6], whole[:, 6, 6],
+                whole[:, 7, 7] > 0.0)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              "the pixel-sharded assembly differs between two calls")
+        got["pixel_px"] = int(xy.shape[1])
+        got["pixel_rel"] = {}
+        for name, a, b, rtol in zip(("A", "b", "chi"), first, want,
+                                    PIXEL_RTOL):
+            rel = float(((a - b).abs() / b.abs()).max())
+            check(rel <= rtol, f"pixel-sharded {name} off by {rel:.3e} "
+                  f"relative (tolerance {rtol})")
+            got["pixel_rel"][name] = rel
+        check(torch.equal(first[3], want[3]), "pixel-sharded err differs")
+    torch.distributed.destroy_process_group()
+    print(json.dumps(got))
+
+
+# The pixel-sharded assembly against the unsharded one (A, b, chi): the
+# tolerances of JAX's own test (tests/test_parallel.py), relative.
+PIXEL_RTOL = (1e-5, 1e-5, 1e-6)
+
+
+def mesh_phase(torch, smi, chunk_s):
+    """Phase 12: the subset-sharded solves and the pixel-sharded assembly
+    over torch.distributed, each rank a subprocess of this script under a
+    timeout: (a) NCCL, a world of one on cuda:0; (b) gloo, two ranks
+    sharing cuda:0.  Returns their readings."""
+    import socket
+    import subprocess
+
+    def run(backend, size):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-worker",
+             backend, str(rank), str(size), str(port)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for rank in range(size)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=MESH_WORKER_TIMEOUT_S))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for rank, (proc, (out, err)) in enumerate(zip(procs, outs)):
+            check(proc.returncode == 0,
+                  f"{backend} rank {rank} of {size} exited "
+                  f"{proc.returncode}: {err[-3000:]}")
+        return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs], wall
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one, one_wall = run("nccl", 1)
+    two, two_wall = run("gloo", 2)
+    solves = NUM_SUBSETS * FRAMES
+    r0 = two[0]
+    print(f"mesh (a) NCCL, a world of one on cuda:0 ({smi}): the chunk == "
+          f"phase 5 bit for bit; K1 launches {one[0]['launches']}; chunk "
+          f"{one[0]['chunk_first_s']:.3f} s first, then in turns with the "
+          f"unsharded chunk in the same process: {one[0]['chunk_s']:.4f} s = "
+          f"{solves / one[0]['chunk_s']:.1f} solves/s with the mesh, "
+          f"{one[0]['chunk_plain_s']:.4f} s = "
+          f"{solves / one[0]['chunk_plain_s']:.1f} without (medians of "
+          f"four; each run, s: "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                      for k, v in one[0]["chunk_turns_s"].items())
+          + f"; phase 6: {chunk_s:.4f} s = {solves / chunk_s:.1f}); "
+          f"workers' wall {one_wall:.1f} s")
+    print(f"mesh (b) gloo, two ranks sharing cuda:0 ({smi}): the chunk == "
+          f"phase 5 bit for bit on both ranks; K1 launches rank 0 "
+          f"{r0['launches']}, rank 1 {two[1]['launches']} (subsets a launch "
+          f"{ {k: round(v, 1) for k, v in r0['subsets_a_launch'].items()} }); "
+          f"chunk {r0['chunk_first_s']:.3f} s first, {r0['chunk_s']:.4f} s = "
+          f"{solves / r0['chunk_s']:.1f} solves/s warm, "
+          f"{solves / r0['chunk_s'] / (solves / chunk_s):.3f}x phase 6's; "
+          + "; ".join(f"{name} == phase 8 bit for bit, {v['pairs']} pairs in "
+                      f"{v['wall_s']:.3f} s = "
+                      f"{NUM_SUBSETS * v['pairs'] / v['wall_s']:.1f} solves/s"
+                      for name, v in r0["sequences"].items())
+          + f"; lagrangian-previous cancelled by should_stop on rank 0 "
+          f"(polled {r0['stopped_polls']} times, broadcast to rank 1): its "
+          f"one record == phase 8's; workers' wall {two_wall:.1f} s")
+    print(f"mesh (c) assemble_pixel_sharded over the two gloo ranks "
+          f"({smi}): the blob's {r0['pixel_px']} level-0 px, max relative "
+          f"difference to the unsharded field assembly on the card A "
+          f"{r0['pixel_rel']['A']:.3e}, b {r0['pixel_rel']['b']:.3e}, chi "
+          f"{r0['pixel_rel']['chi']:.3e} (tolerances {PIXEL_RTOL}), err "
+          f"equal, identical on a second call; {r0['pixel_first_s'] * 1e3:.2f}"
+          f" ms first, {r0['pixel_s'] * 1e3:.2f} ms second (host clock, "
+          f"barriers included); phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s")
+    return one, two
 
 
 def main() -> int:
@@ -1196,6 +1524,12 @@ def main() -> int:
     check(p_diff <= 1e-3, f"card vs CPU params differ by {p_diff}")
     check(mismatch <= 0.01 * g["error"].size,
           f"{mismatch} iteration/error mismatches card vs CPU")
+    # Phase 12's ranks hold their solves to this one's, through a file.
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(MESH_DIR / "phase5.npz",
+             **{k: out[k].cpu().numpy()
+                for k in ("params", "guess", "chi", "iterations", "error",
+                          "packed", "center0", "n_points0")})
     print(f"slice: correlate_frames {NUM_SUBSETS} subsets x {FRAMES} frames "
           f"in {first_s:.3f} s (first run), {launches} kernel launches ("
           + ", ".join(f"L{lvl} {k}, {m / k:.1f} subsets a launch"
@@ -1261,7 +1595,7 @@ def main() -> int:
     kernels += experiments_phase(torch, dev, smi)
 
     # ---- 8. the sequence runs -----------------------------------------------
-    sequence_phase(torch, dev, smi, v2)
+    np.savez(MESH_DIR / "phase8.npz", **sequence_phase(torch, dev, smi, v2))
 
     # ---- 9. annular and blob domains, multi-ROI ----------------------------
     kernels += domains_phase(torch, dev, smi, v2)
@@ -1277,7 +1611,10 @@ def main() -> int:
     # ---- 11. the command line on the card -----------------------------------
     surface_phase(torch, smi)
 
-    print(f"wall: {time.perf_counter() - script_t0:.1f} s for phases 1-11")
+    # ---- 12. multi-GPU: torch.distributed -------------------------------------
+    mesh_phase(torch, smi, chunk_s)
+
+    print(f"wall: {time.perf_counter() - script_t0:.1f} s for phases 1-12")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -1286,4 +1623,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        backend, rank, size, port = sys.argv[2:6]
+        mesh_worker(backend, int(rank), int(size), int(port))
+        sys.exit(0)
     sys.exit(main())

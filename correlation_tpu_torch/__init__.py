@@ -6,6 +6,9 @@ at once.  The fused assembly runs as a hand-written CUDA kernel on CUDA
 tensors and as its plain PyTorch version on CPU tensors; the
 coefficient-field assembly (backend "field") runs as the same PyTorch code
 on either.  The command line is `python -m correlation_tpu_torch.cli`.
+parallel/ shards the subsets over processes, one a card, on
+torch.distributed (correlate, correlate_frames and run_sequence take a
+mesh=).
 This package imports torch and never jax; correlation_tpu stays the
 reference it is tested against.
 """
@@ -43,6 +46,12 @@ from correlation_tpu_torch.ops.seed import (
     global_guess_from_pair,
     phase_correlation_guess,
 )
+from correlation_tpu_torch.parallel import (
+    Mesh,
+    assemble_pixel_sharded,
+    init_distributed,
+    make_mesh,
+)
 from correlation_tpu_torch.sequence import (
     FrameRecord,
     SequenceConfig,
@@ -78,6 +87,10 @@ __all__ = [
     "field_assemble",
     "phase_correlation_guess",
     "global_guess_from_pair",
+    "Mesh",
+    "init_distributed",
+    "make_mesh",
+    "assemble_pixel_sharded",
     "cli",
 ]
 

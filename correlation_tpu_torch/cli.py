@@ -7,11 +7,20 @@ Example:
       --model affine --interp bicubic --pyramid 0 1 2 \\
       --report out.csv
 
+Sharded over several cards, one process a card (--shard):
+  torchrun --nproc_per_node=4 -m correlation_tpu_torch.cli frames/*.png \\
+      --rect 100 100 400 400 --subdivisions 16 16 --report out.csv --shard
+and with --cpu --shard the ranks solve on the CPU over gloo.  Every rank
+solves its share of the sectors and holds the whole records; rank 0
+alone writes the report, the checkpoint, the overlays and the trace, and
+prints.
+
 The flags, defaults, messages and exit codes are the JAX package's, except
 that --backend takes the port's backends, --cpu solves on the CPU (without
 it the run needs a CUDA device and exits 1 where there is none),
---profile writes a torch.profiler trace, and there is no --compact-stages
-(the port's LM loop has no compaction) and no --shard.
+--profile writes a torch.profiler trace, --shard runs under a launcher
+that starts one process a card (torchrun), and there is no
+--compact-stages (the port's LM loop has no compaction).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from correlation_tpu_torch.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu_torch.engine import resolve_device
+from correlation_tpu_torch.engine import resolve_device, uses_field
 from correlation_tpu_torch.report import write_report
 from correlation_tpu_torch.sequence import (
     SequenceConfig,
@@ -144,6 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", type=str, default=None, metavar="DIR",
                     help="write a torch.profiler trace (Chrome JSON) of "
                          "the run to DIR")
+    ap.add_argument("--shard", action="store_true",
+                    help="shard the sectors over the processes a launcher "
+                         "started (torchrun --nproc_per_node=N), one a "
+                         "card (gloo on the CPU with --cpu)")
     return ap
 
 
@@ -165,6 +178,33 @@ class _Reload:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    mesh = None
+    if args.shard:
+        from correlation_tpu_torch.parallel.mesh import (
+            init_distributed,
+            make_mesh,
+        )
+
+        device = "cpu" if args.cpu else None
+        try:
+            joined = init_distributed(device=device)
+            mesh = make_mesh(device)
+        except RuntimeError as err:
+            print(err, file=sys.stderr)
+            return 1
+        try:
+            return _run(args, mesh)
+        finally:
+            if joined:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+    return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
+    # Only rank 0 writes and prints; every rank solves.
+    lead = mesh is None or mesh.rank == 0
     solver = SolverConfig(
         model=_MODELS[args.model],
         interpolation=_INTERPS[args.interp],
@@ -273,12 +313,23 @@ def main(argv: list[str] | None = None) -> int:
             return 2
 
     # The device is chosen before any image is decoded: the card, unless
-    # --cpu asks for the CPU; no card and no --cpu ends the run here.
+    # --cpu asks for the CPU (a rank's, with --shard); no card and no --cpu
+    # ends the run here.
     try:
-        device = resolve_device(solver, "cpu" if args.cpu else None)
+        device = resolve_device(solver, "cpu" if args.cpu else None,
+                                mesh=mesh)
     except RuntimeError as err:
         print(err, file=sys.stderr)
         return 1
+    if (mesh is not None and mesh.device.type == "cuda"
+            and not uses_field(solver, 3 if args.color else 1)):
+        # Rank 0 builds the fused kernel's library the others then load.
+        from correlation_tpu_torch.ops import _build
+        from correlation_tpu_torch.parallel.mesh import barrier
+
+        if lead:
+            _build.load_library()
+        barrier(mesh)
 
     per_sector_guess = None
     if args.auto_guess:
@@ -297,17 +348,18 @@ def main(argv: list[str] | None = None) -> int:
             win=args.auto_guess_win,
             device=device,
         )
-        print(
-            "auto-guess (per-sector phase correlation): "
-            f"u in [{per_sector_guess[:, 0].min():.0f}, "
-            f"{per_sector_guess[:, 0].max():.0f}], "
-            f"v in [{per_sector_guess[:, 1].min():.0f}, "
-            f"{per_sector_guess[:, 1].max():.0f}]",
-            file=sys.stderr,
-        )
+        if lead:
+            print(
+                "auto-guess (per-sector phase correlation): "
+                f"u in [{per_sector_guess[:, 0].min():.0f}, "
+                f"{per_sector_guess[:, 0].max():.0f}], "
+                f"v in [{per_sector_guess[:, 1].min():.0f}, "
+                f"{per_sector_guess[:, 1].max():.0f}]",
+                file=sys.stderr,
+            )
 
     with contextlib.ExitStack() as stack:
-        if args.profile:
+        if args.profile and lead:
             from correlation_tpu_torch.utils import profiling
 
             profiling.start_trace(args.profile)
@@ -329,7 +381,10 @@ def main(argv: list[str] | None = None) -> int:
             checkpoint_path=args.checkpoint,
             checkpoint_every=args.checkpoint_every,
             device=device,
+            mesh=mesh,
         )
+    if not lead:
+        return 0
     if args.plot_dir:
         plot_points = args.plot_points
         paths = viz.save_sequence_overlays(

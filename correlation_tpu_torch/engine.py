@@ -35,6 +35,15 @@ subset's trajectory depends on its own state alone, so this is the same
 arithmetic as the JAX loop (whose compaction is tested bit-identical to
 the monolithic loop).  Capturing fixed blocks of iterations in CUDA graphs
 is later work.
+
+Subset sharding (mesh=, parallel/mesh.py).  correlate and
+correlate_frames take a mesh of processes, one a card: every rank gets
+the caller's whole batch, computes the level statics from it, pads it to
+the mesh and solves its contiguous slice through the same path, and the
+outputs all-gather in rank order and lose the padding, so every rank
+returns the caller's S subsets.  A slice keeps the whole batch's padded
+point counts, extents and tiles, so it sums in the same order, and the
+sharded solve equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +64,12 @@ from correlation_tpu_torch.ops.interp import (
 )
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.ops.solve import lm_delta
+from correlation_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rows,
+    shard_inputs,
+    shard_rows,
+)
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 
@@ -382,11 +397,19 @@ def correlate_prepared(
     )
 
 
-def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
-    """Where a solve runs: `device` when the caller names one, else the
-    device of `like` when it is a tensor, else the card for backends
-    "cuda", "auto" and "field" (raising RuntimeError when there is none)
-    and the CPU for backend "torch"."""
+def resolve_device(cfg: SolverConfig, device=None, like=None,
+                   mesh: Mesh | None = None) -> torch.device:
+    """Where a solve runs: the mesh's device when there is a mesh (a
+    `device` that names another raises ValueError), else `device` when
+    the caller names one, else the device of `like` when it is a tensor,
+    else the card for backends "cuda", "auto" and "field" (raising
+    RuntimeError when there is none) and the CPU for backend "torch"."""
+    if mesh is not None:
+        if device is not None and not _same_device(device, mesh.device):
+            raise ValueError(
+                f"device {device} is not the mesh's device {mesh.device}; "
+                "a rank solves on its mesh's device")
+        return mesh.device
     if device is not None:
         return torch.device(device)
     if torch.is_tensor(like):
@@ -400,6 +423,14 @@ def resolve_device(cfg: SolverConfig, device=None, like=None) -> torch.device:
             "on the CPU"
         )
     return torch.device("cuda")
+
+
+def _same_device(device, mesh_device: torch.device) -> bool:
+    """Whether `device` names the mesh's device (one without an index
+    names its type)."""
+    want = torch.device(device)
+    return (want.type == mesh_device.type
+            and want.index in (None, mesh_device.index))
 
 
 MAX_CHANNELS = 3  # the tiled assembly's (the fused kernel's) limit
@@ -442,6 +473,7 @@ def correlate(
     subsets,
     params0,
     device=None,
+    mesh: Mesh | None = None,
 ) -> CorrelationResult:
     """Batched correlation of one frame pair.
 
@@ -449,10 +481,23 @@ def correlate(
     tensors; see ops.pyramid.build_pyramid).  subsets: a
     domains.SubsetBatch.  params0: [S, NP] guesses at level-0 scale.
     device: where to solve (default: resolve_device, the device of
-    und_pyramid[0] when it is a tensor).
+    und_pyramid[0] when it is a tensor).  mesh: optional
+    parallel.mesh.Mesh; the subset axis shards over its ranks, which all
+    pass the same arguments, solve on the mesh's device and return the
+    caller's S subsets (the mesh padding is added and stripped here).
     """
-    return correlate_many(cfg, und_pyramid, def_pyramid, [subsets],
-                          [params0], device)[0]
+    if mesh is None:
+        return correlate_many(cfg, und_pyramid, def_pyramid, [subsets],
+                              [params0], device)[0]
+    # The shard keeps the whole batch's extents, so the level statics
+    # correlate_many computes from it are the whole batch's.  Every check
+    # that can raise runs before the one collective, alike on every rank.
+    device = resolve_device(cfg, device, mesh=mesh)
+    shard, guess = shard_inputs(mesh, subsets, params0)
+    res = correlate_many(cfg, und_pyramid, def_pyramid, [shard], [guess],
+                         device)[0]
+    return CorrelationResult(
+        *(gather_rows(mesh, t, subsets.num_subsets) for t in res))
 
 
 def correlate_many(
@@ -537,6 +582,7 @@ def correlate_frames(
     ucen_seed=None,
     statics=None,
     device=None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Chained solve of K frame pairs (correlation_tpu.engine.correlate_frames).
 
@@ -569,13 +615,18 @@ def correlate_frames(
     their coefficient fields in the frame loop, never the whole stack's
     at once (one bicubic field of a 1024 x 1024 frame is 67 MB).
 
+    mesh: optional parallel.mesh.Mesh; the subset axis (of the batch,
+    guess0 and the seeds) shards over its ranks, which all pass the same
+    arguments and solve on the mesh's device; the statics come from the
+    whole batch, and every output is gathered whole on every rank.
+
     Returns the stacked per-frame params, guess, chi, iterations, error
     ([K, S, ...]), the packed [K, S, NP + 3] output (params, chi,
     iterations, error), and the carry (p, prev, chi, iterations, plus off
     and ucen for lagrangian) for the next chunk.
     """
     check_channels(cfg, np.shape(frames_stack), "the frames")
-    device = resolve_device(cfg, device, frames_stack)
+    device = resolve_device(cfg, device, frames_stack, mesh)
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1
     pyr = build_pyramid(frames, cfg.pyramid.stop)
@@ -584,6 +635,12 @@ def correlate_frames(
         statics = None
     elif statics is None:
         statics = compute_level_statics(cfg, subsets, pyr)
+    num_subsets = subsets.num_subsets
+    if mesh is not None:
+        subsets, guess0 = shard_inputs(mesh, subsets, guess0)
+        p_seed, prev_seed, chi_seed, it_seed, off_seed, ucen_seed = (
+            shard_rows(mesh, a) for a in (p_seed, prev_seed, chi_seed,
+                                          it_seed, off_seed, ucen_seed))
     batch = subsets.to_device(device)
     s = batch.num_subsets
     schedule = cfg.pyramid.levels_coarse_to_fine()
@@ -685,4 +742,11 @@ def correlate_frames(
     out["carry"] = (p, prev, chi_c, it_c) + ((off, ucen) if lagrangian else ())
     out["center0"] = batch.center0
     out["n_points0"] = n_points0.to(torch.int32)
+    if mesh is not None:
+        for key in (*ys, "packed"):  # [K, S, ...]
+            out[key] = gather_rows(mesh, out[key], num_subsets, dim=1)
+        out["carry"] = tuple(gather_rows(mesh, t, num_subsets)
+                             for t in out["carry"])
+        for key in ("center0", "n_points0"):
+            out[key] = gather_rows(mesh, out[key], num_subsets)
     return out

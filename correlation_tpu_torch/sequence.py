@@ -21,7 +21,6 @@ What the JAX chunked path does for the TPU and this port does not:
     eagerly, so the tail chunk is simply shorter;
   * it demotes the kernel's bf16 image path when a frame is not
     uint8-valued (guard_p1); the CUDA kernel reads float32 images;
-  * it shards subsets over a device mesh; the port runs on one device;
   * it dispatches chunk i + 1 before it fetches chunk i's results.  The
     port's solve synchronises every LM iteration, so there is nothing to
     overlap: chunk i's records are emitted, then chunk i + 1 is solved.
@@ -35,6 +34,14 @@ host state (p = params = 0, prev = the frame-0 guess), so the solver's
 guess for the second pair is 2 p1, while the records report the
 per-frame path's p1 + (p1 - guess); the two differ when the global guess
 is not zero (ROADMAP, findings against the JAX package).
+
+With a mesh (parallel.mesh, one process a card) every pair's solve shards
+its subsets over the ranks and gathers the results whole on every rank,
+so every rank runs the same host loop on the same numbers: the records,
+the domain advance and the error-mode decisions agree.  should_stop is
+polled on rank 0 and its answer broadcast, so every rank leaves the loop
+at the same pair; rank 0 alone writes the checkpoint, and the ranks wait
+for it before going on.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from correlation_tpu_torch.engine import (
 )
 from correlation_tpu_torch.models.warp import warp_points
 from correlation_tpu_torch.ops.pyramid import build_pyramid
+from correlation_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_flag
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,6 +364,7 @@ def run_sequence(
     checkpoint_every: int = 1,
     on_frame=None,
     device=None,
+    mesh: Mesh | None = None,
 ) -> list[FrameRecord]:
     """Correlate a frame sequence.
 
@@ -381,6 +390,10 @@ def run_sequence(
       on_frame: optional callback(record) after each frame pair.
       device: where to solve (default: engine.resolve_device, the card
         unless the backend is "torch"; raises without one).
+      mesh: optional parallel.mesh.Mesh; every rank passes the same
+        arguments, the subsets shard over the ranks (engine.correlate) and
+        every rank returns the whole records.  should_stop is called on
+        rank 0 only; the checkpoint is written by rank 0 only.
 
     Returns:
       One FrameRecord per frame pair solved.
@@ -390,7 +403,8 @@ def run_sequence(
     solver = cfg.solver
     model = solver.model
     num_params = solver.num_params
-    device = resolve_device(solver, device)
+    device = resolve_device(solver, device, mesh=mesh)
+    should_stop = broadcast_flag(mesh, should_stop)
     if global_guess is None:
         global_guess = np.zeros(num_params, np.float32)
     if global_center is None:
@@ -422,7 +436,9 @@ def run_sequence(
         if checkpoint_path is not None:
             from correlation_tpu_torch.utils.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_path, next_frame, state, records)
+            if mesh is None or mesh.rank == 0:
+                save_checkpoint(checkpoint_path, next_frame, state, records)
+            barrier(mesh)
 
     def batch_for(points_moved: bool):
         # Padded shapes grow once and then hold across frames.
@@ -495,7 +511,7 @@ def run_sequence(
     )
     if chunked:
         _run_chunked(frames, cfg, state, batch_for(False), start_frame,
-                     device, emit, save_ckpt, measured, should_stop,
+                     device, mesh, emit, save_ckpt, measured, should_stop,
                      checkpoint_path is not None, checkpoint_every)
         return records
 
@@ -529,7 +545,7 @@ def run_sequence(
         with measured(subsets.num_subsets):
             result = correlate(solver, pyramid_of(und_idx),
                                pyramid_of(frame + 1), subsets, state.guess,
-                               device=device)
+                               device=device, mesh=mesh)
             params, und_center, n_points, errors, chi, iterations = (
                 t.cpu().numpy() for t in (
                     result.params, result.center, result.n_points,
@@ -553,8 +569,8 @@ def run_sequence(
     return records
 
 
-def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
-                 save_ckpt, measured, should_stop, checkpointing,
+def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
+                 emit, save_ckpt, measured, should_stop, checkpointing,
                  checkpoint_every):
     """run_sequence's chunked path: frame_chunk pairs per
     engine.correlate_frames call.  The domain advance of the Lagrangian
@@ -601,7 +617,7 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, emit,
                 guess0=state.guess, reference_first=ref_first,
                 stop_frame=stop_frame, lagrangian=lagr,
                 float_centers=state.explicit_centers,
-                first_chunk=frame == 0, device=device, **seeds,
+                first_chunk=frame == 0, device=device, mesh=mesh, **seeds,
             )
             packed = out["packed"].cpu().numpy()
         carry = out["carry"]
@@ -689,7 +705,8 @@ def run_sequence_from_files(
     from correlation_tpu_torch.io import FramePrefetcher
 
     # Before any decoding: raises where the default device is missing.
-    kwargs["device"] = resolve_device(cfg.solver, kwargs.get("device"))
+    kwargs["device"] = resolve_device(cfg.solver, kwargs.get("device"),
+                                      mesh=kwargs.get("mesh"))
     # The chunked path stages frame_chunk frames at a time.
     ahead = max(
         2,
