@@ -68,9 +68,8 @@ Phases, one informational line each:
      the field path with phase 5's checks, no K1 launch, and card vs CPU
      on 256 subsets x 2 frames; its solves/s and per-level assembly and
      field times beside phase 6's tiled readings; a 4-channel version of
-     the drifting frames (256 subsets x 4 pairs) under "auto", which takes
-     the field path, card against CPU bit for bit; and a second reading of
-     K1 at each level;
+     the drifting frames (256 subsets x 4 pairs) on the field path, card
+     against CPU bit for bit; and a second reading of K1 at each level;
  11. surface: `python -m correlation_tpu_torch.cli` as a subprocess on the
      card: 8 drifting 1024x1024 PNG frames (written under build/), a
      16 x 16 rectangle grid with --report, --plot-dir --plot-points and
@@ -95,7 +94,22 @@ Phases, one informational line each:
      8's first), and assemble_pixel_sharded on the blob's level-0
      pixels, within JAX's test tolerances of the unsharded field
      assembly on the card and identical on a second call; each wall and
-     the chunk's solves/s beside phase 6's.
+     the chunk's solves/s beside phase 6's;
+ 13. sep: the separable-tile assembly (backend "sep", JAX's "xla_sep"; no
+     hand kernel: PyTorch elementwise operations and gathers in a fixed
+     order): one assembly of the 4096 subsets per level at phase 6's
+     parameters, card against CPU bit for bit, timed from a CUDA graph
+     beside K1's (phase 6) and the field's (phase 10); the 64-frame chunk
+     of phase 5 on the sep path with phase 5's checks, no K1 launch, card
+     == CPU bit for bit on 256 subsets x 2 frames, its solves/s beside
+     phase 6's, and whether it equals phase 5's K1 chunk (the dense grid's
+     rectangles give both rules the same tiles); the 4-channel frames of
+     phase 10 under "auto", which takes the sep path, card == CPU bit for
+     bit;
+ 14. profile: experiments.profile_bench at full size (correlate,
+     prepare_levels, solve_level per level, K1 chained per level,
+     lm_delta, solve_level with the assembly stubbed), every time finite
+     and positive.
 Then a JSON line with the kernel records (K1 at each level of the dense
 grid and of the blob, K2, the five stages): launches on the main path
 (K1: its level's, with the mean subsets a launch and the threads a
@@ -835,7 +849,6 @@ def field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args, batch,
     from correlation_tpu_torch.engine import correlate_frames
     from correlation_tpu_torch.ops.assemble import field_assemble
     from correlation_tpu_torch.ops.interp import precompute_field
-    from correlation_tpu_torch.problems import drifting_sequence
     from correlation_tpu_torch.utils.profiling import graph_ms
 
     phase_t0 = time.perf_counter()
@@ -932,18 +945,16 @@ def field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args, batch,
           f"{mismatch} iteration/error mismatches, bit for bit: {same}; "
           f"{levels}")
 
-    # Four channels under "auto": the field path, card against CPU.
-    seq = drifting_sequence(4)
-    seq4 = np.concatenate([seq, 255 - seq, seq // 2, seq // 3 + 64], axis=-1)
-    acfg = dataclasses.replace(cfg, backend="auto")
+    # Four channels on the field path, card against CPU.
+    seq4 = four_channels()
     v2.reset_launches()
     t0 = time.perf_counter()
-    card = correlate_frames(acfg, torch.from_numpy(seq4).to(dev), sub,
+    card = correlate_frames(fcfg, torch.from_numpy(seq4).to(dev), sub,
                             params0[:CPU_SUBSETS], device=dev)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    check(v2.LAUNCHES == 0, "four channels under auto launched K1")
-    cpu = correlate_frames(acfg, seq4, sub, params0[:CPU_SUBSETS],
+    check(v2.LAUNCHES == 0, "four channels on the field path launched K1")
+    cpu = correlate_frames(fcfg, seq4, sub, params0[:CPU_SUBSETS],
                            device="cpu")
     for k in ("params", "chi", "iterations", "error"):
         check(torch.equal(card[k].cpu(), cpu[k]),
@@ -957,7 +968,7 @@ def field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args, batch,
     # A second reading of K1 at each level (phase 6's inputs).
     again = {lvl: graph_ms(lambda: v2.fused_assemble(*args), 20)
              for lvl, args in sorted(level_args.items())}
-    print(f"field ({smi}): four channels under auto, {CPU_SUBSETS} subsets x "
+    print(f"field ({smi}): four channels, {CPU_SUBSETS} subsets x "
           f"4 pairs: the field path (0 K1 launches), {card_s:.3f} s on the "
           f"card, card == CPU bit for bit, median (u, v) within {worst:.5f} "
           f"of the motion; K1 second reading (graph): "
@@ -965,7 +976,144 @@ def field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args, batch,
                       f"{tiled_levels[lvl][0]:.4f})"
                       for lvl, ms in again.items())
           + f"; phase wall {time.perf_counter() - phase_t0:.1f} s")
-    return again
+    return again, {lvl: a for lvl, (a, _) in asm.items()}
+
+
+def four_channels():
+    """[5, 1024, 1024, 4] uint8: 4 pairs of drifting frames in 4 channels."""
+    import numpy as np
+
+    from correlation_tpu_torch.problems import drifting_sequence
+
+    seq = drifting_sequence(4)
+    return np.concatenate([seq, 255 - seq, seq // 2, seq // 3 + 64], axis=-1)
+
+
+def sep_phase(torch, dev, smi, v2, cfg, level_args, batch, params0,
+              stack_dev, tiled, field_ms):
+    """Phase 13: the separable-tile assembly (backend "sep") at full width.
+    `tiled` holds phase 6's readings ((chunk seconds, {level: (kernel
+    graph ms, eager ms, plain ms)})), `field_ms` phase 10's field assembly
+    ms a level."""
+    import numpy as np
+
+    from correlation_tpu_torch.domains import SubsetBatch
+    from correlation_tpu_torch.engine import correlate_frames
+    from correlation_tpu_torch.ops.assemble import sep_assemble
+    from correlation_tpu_torch.utils.profiling import graph_ms
+
+    phase_t0 = time.perf_counter()
+    scfg = dataclasses.replace(cfg, backend="sep")
+    # One separable assembly of every subset per level, card against CPU,
+    # at phase 6's parameters (subset 7 out of the image), on phase 6's
+    # images (padded only up to the tile, as the sep path pads them).
+    asm = {}
+    for lvl, args in sorted(level_args.items()):
+        model, interp, th, tw, ih, iw, img, pix, center, params, _ = args
+        got = sep_assemble(model, interp, th, tw, ih, iw, img, pix, center,
+                           params)
+        ref = sep_assemble(model, interp, th, tw, ih, iw, img.cpu(),
+                           pix.cpu(), center.cpu(), params.cpu())
+        check(torch.equal(got.cpu(), ref),
+              f"the level-{lvl} sep assembly differs card vs CPU")
+        check(float(ref[7, 7, 7]) > 0, f"L{lvl}: out-of-image subset not "
+              "flagged by the sep assembly")
+        asm[lvl] = graph_ms(lambda: sep_assemble(model, interp, th, tw, ih,
+                                                 iw, img, pix, center,
+                                                 params), 5)
+        del got, ref
+    torch.cuda.empty_cache()
+
+    # Phase 5's 64-frame chunk on the sep path: phase 5's checks, no K1,
+    # card == CPU bit for bit on phase 5's subsets.  One run, timed as it is.
+    torch.cuda.synchronize()
+    v2.reset_launches()
+    t0 = time.perf_counter()
+    out = correlate_frames(scfg, stack_dev, batch, params0, device=dev)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    mean_it = float(out["iterations"].float().mean())
+    check(v2.LAUNCHES == 0, f"the sep path launched K1 {v2.LAUNCHES} times")
+    params = out["params"].cpu().numpy()
+    errors = out["error"].cpu().numpy()
+    check(np.isfinite(params).all(), "sep: non-finite parameters")
+    hard = float(np.mean((errors != 0) & (errors != 3)))
+    check(hard < 0.005, f"sep: hard-error fraction {hard}")
+    med = np.median(params[-1][:, :2], axis=0)
+    check(abs(med[0]) <= 0.02 and abs(med[1] - 1.0) <= 0.02,
+          f"sep: median (u, v) = {med}, expected (0, 1)")
+    sub = SubsetBatch([a[:CPU_SUBSETS] for a in batch.xy],
+                      [m[:CPU_SUBSETS] for m in batch.mask],
+                      batch.center0[:CPU_SUBSETS], batch.extents)
+    cpu = correlate_frames(scfg, stack_dev[:3].cpu(), sub,
+                           params0[:CPU_SUBSETS], device="cpu")
+    for k in ("params", "chi", "iterations", "error"):
+        check(torch.equal(out[k][:2, :CPU_SUBSETS].cpu(), cpu[k]),
+              f"sep: card and CPU {k} differ")
+    # The dense grid's subsets are rectangles, whose bounding-box corners
+    # are pixels, so the kernel places the same tiles (informational).
+    phase5 = np.load(MESH_DIR / "phase5.npz")
+    same_k1 = all(np.array_equal(out[k].cpu().numpy(), phase5[k])
+                  for k in ("params", "chi", "iterations", "error"))
+    del out
+    torch.cuda.empty_cache()
+
+    # Four channels under "auto": the sep path, card against CPU.
+    seq4 = four_channels()
+    acfg = dataclasses.replace(cfg, backend="auto")
+    v2.reset_launches()
+    t0 = time.perf_counter()
+    card = correlate_frames(acfg, torch.from_numpy(seq4).to(dev), sub,
+                            params0[:CPU_SUBSETS], device=dev)
+    torch.cuda.synchronize()
+    card4_s = time.perf_counter() - t0
+    check(v2.LAUNCHES == 0, "four channels under auto launched K1")
+    cpu = correlate_frames(acfg, seq4, sub, params0[:CPU_SUBSETS],
+                           device="cpu")
+    for k in ("params", "chi", "iterations", "error"):
+        check(torch.equal(card[k].cpu(), cpu[k]),
+              f"four channels under auto: card and CPU {k} differ")
+    errors = cpu["error"].numpy()
+    check(float(np.mean((errors != 0) & (errors != 3))) < 0.005,
+          "four channels under auto: hard errors")
+    worst = max(float(np.abs(np.median(cpu["params"][t, :, :2].numpy(), axis=0)
+                             - [0.0, t + 1.0]).max()) for t in range(4))
+    check(worst <= 0.02, f"four channels under auto: median (u, v) off by "
+          f"{worst}")
+
+    tiled_s, tiled_levels = tiled
+    s = batch.num_subsets
+    frames = stack_dev.shape[0] - 1
+    levels = "; ".join(
+        f"L{lvl} sep {a:.4f} ms, field {field_ms[lvl]:.4f} ms, K1 "
+        f"{tiled_levels[lvl][0]:.4f} ms" for lvl, a in asm.items())
+    print(f"sep ({smi}): one assembly of {s} subsets card == CPU bit for bit "
+          f"at every level (graph: {levels}); {frames}-frame chunk on the "
+          f"sep path {chunk_s:.4f} s = {s * frames / chunk_s:.1f} solves/s "
+          f"(tiled, phase 6: {tiled_s:.4f} s = {s * frames / tiled_s:.1f} "
+          f"solves/s), mean iterations {mean_it:.3f}, 0 K1 launches; "
+          f"hard-error fraction {hard}; median (u, v) = ({med[0]:.5f}, "
+          f"{med[1]:.5f}); card == CPU bit for bit ({CPU_SUBSETS} subsets x "
+          f"2 frames); equal to phase 5's K1 chunk: {same_k1}; four channels "
+          f"under auto ({CPU_SUBSETS} subsets x 4 pairs): the sep path, "
+          f"{card4_s:.3f} s on the card, card == CPU bit for bit, median "
+          f"(u, v) within {worst:.5f} of the motion; phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s")
+
+
+def profile_phase():
+    """Phase 14: experiments.profile_bench at full size; every time it
+    reads must be finite and positive."""
+    import math
+
+    from correlation_tpu_torch.experiments import profile_bench
+
+    phase_t0 = time.perf_counter()
+    times = profile_bench.main()
+    bad = {k: v for k, v in times.items() if not (math.isfinite(v) and v > 0)}
+    check(not bad, f"profile_bench: times not finite and positive: {bad}")
+    print(f"profile: {len(times)} readings, all finite and positive; phase "
+          f"wall {time.perf_counter() - phase_t0:.1f} s")
 
 
 def surface_phase(torch, smi):
@@ -1601,8 +1749,9 @@ def main() -> int:
     kernels += domains_phase(torch, dev, smi, v2)
 
     # ---- 10. the coefficient-field assembly ---------------------------------
-    again = field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr, level_args,
-                        batch, params0, stack_dev, (chunk_s, per_level))
+    again, field_ms = field_phase(torch, dev, smi, v2, cfg, pyr, cpu_pyr,
+                                  level_args, batch, params0, stack_dev,
+                                  (chunk_s, per_level))
     for rec in kernels:
         lvl = {f"fused_assemble_L{k}": k for k in again}.get(rec["name"])
         if lvl is not None:
@@ -1614,7 +1763,14 @@ def main() -> int:
     # ---- 12. multi-GPU: torch.distributed -------------------------------------
     mesh_phase(torch, smi, chunk_s)
 
-    print(f"wall: {time.perf_counter() - script_t0:.1f} s for phases 1-12")
+    # ---- 13. the separable-tile assembly ----------------------------------
+    sep_phase(torch, dev, smi, v2, cfg, level_args, batch, params0,
+              stack_dev, (chunk_s, per_level), field_ms)
+
+    # ---- 14. the per-phase profile ----------------------------------------
+    profile_phase()
+
+    print(f"wall: {time.perf_counter() - script_t0:.1f} s for phases 1-14")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

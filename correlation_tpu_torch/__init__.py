@@ -4,8 +4,8 @@ Batched Lucas-Kanade digital image correlation: Levenberg-Marquardt damped
 Gauss-Newton over parametric subset warps, solved for thousands of subsets
 at once.  The fused assembly runs as a hand-written CUDA kernel on CUDA
 tensors and as its plain PyTorch version on CPU tensors; the
-coefficient-field assembly (backend "field") runs as the same PyTorch code
-on either.  The command line is `python -m correlation_tpu_torch.cli`.
+separable-tile assembly (backend "sep") and the coefficient-field one
+(backend "field") run as the same PyTorch code on either.  The command line is `python -m correlation_tpu_torch.cli`.
 parallel/ shards the subsets over processes, one a card, on
 torch.distributed (correlate, correlate_frames and run_sequence take a
 mesh=).

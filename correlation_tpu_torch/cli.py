@@ -42,7 +42,7 @@ from correlation_tpu_torch.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu_torch.engine import resolve_device, uses_field
+from correlation_tpu_torch.engine import resolve_assembly, resolve_device
 from correlation_tpu_torch.report import write_report
 from correlation_tpu_torch.sequence import (
     SequenceConfig,
@@ -103,8 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", choices=list(BACKENDS), default="auto",
                     help="assembly backend: auto = the fused kernel (its "
                          "plain version on the CPU) up to 3 channels, the "
-                         "coefficient field above; cuda / torch = the fused "
-                         "kernel / its plain version only; field = the "
+                         "separable tiles above; cuda / torch = the fused "
+                         "kernel / its plain version only; sep = the "
+                         "separable-tile assembly (JAX's xla_sep, any "
+                         "number of channels); field = the "
                          "coefficient-field assembly (no tile-extent limit "
                          "on warps, any number of channels)")
     ap.add_argument("--tile-margin", type=int, default=8, metavar="PX",
@@ -322,7 +324,7 @@ def _run(args, mesh) -> int:
         print(err, file=sys.stderr)
         return 1
     if (mesh is not None and mesh.device.type == "cuda"
-            and not uses_field(solver, 3 if args.color else 1)):
+            and resolve_assembly(solver, 3 if args.color else 1) == "tiled"):
         # Rank 0 builds the fused kernel's library the others then load.
         from correlation_tpu_torch.ops import _build
         from correlation_tpu_torch.parallel.mesh import barrier

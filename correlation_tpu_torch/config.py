@@ -87,7 +87,7 @@ class PyramidConfig:
             raise ValueError(f"invalid pyramid schedule {self}")
 
 
-BACKENDS = ("auto", "cuda", "torch", "field")
+BACKENDS = ("auto", "cuda", "torch", "sep", "field")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +108,14 @@ class SolverConfig:
     # assembly, at most 3 channels: the CUDA kernel on CUDA tensors and its
     # plain PyTorch version on CPU tensors; "cuda" requires CUDA tensors
     # and "torch" CPU tensors, and the solve raises on the other device.
-    # "field" takes the coefficient-field assembly (JAX's "xla"; any
-    # number of channels, no tile limit on warps) on the device of the
-    # tensors.  "auto" takes the tiled assembly on either device up to 3
-    # channels and the field assembly above.  Given numpy input and no
-    # device, "torch" solves on the CPU and "cuda", "auto" and "field" on
-    # the card, raising where there is none (engine.resolve_device).
+    # "sep" takes the separable-tile assembly (JAX's "xla_sep": tiles
+    # placed from the warped pixels, any number of channels) and "field"
+    # the coefficient-field assembly (JAX's "xla"; any number of channels,
+    # no tile limit on warps), both on the device of the tensors.  "auto"
+    # takes the tiled assembly on either device up to 3 channels and the
+    # separable one above.  Given numpy input and no device, "torch"
+    # solves on the CPU and the others on the card, raising where there is
+    # none (engine.resolve_device).
     backend: str = "auto"
     # Extra pixels of warp headroom in the per-subset image tiles: warps
     # that grow the subset span by more than this flag the subset

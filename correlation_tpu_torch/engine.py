@@ -16,14 +16,17 @@ semantics are the JAX engine's:
     at level-0 scale and chi = FLT_MAX;
   * u, v scale by powers of two between pyramid levels.
 
-Two assemblies.  The tiled one (backends "cuda" and "torch") is the fused
-kernel of ops/assemble_v2.py, which reads a per-subset tile of the
-deformed image and takes at most 3 channels; the coefficient-field one
-(backend "field", JAX's "xla"; ops/assemble.py) samples each level's
-coefficient field, so warps of any size and any number of channels solve.
-"auto" takes the tiled assembly for up to 3 channels and the field above
-(uses_field).  Both return the same [n, 8, 8] Gram, so the LM loop is
-one.
+Three assemblies (resolve_assembly).  The tiled one (backends "cuda" and
+"torch") is the fused kernel of ops/assemble_v2.py, which reads a
+per-subset tile of the deformed image and takes at most 3 channels; the
+separable-tile one (backend "sep", JAX's "xla_sep"; ops/assemble.py)
+reads the same taps from tiles placed by JAX's rule, in plain torch and
+for any number of channels; the coefficient-field one (backend "field",
+JAX's "xla"; ops/assemble.py) samples each level's coefficient field, so
+warps of any size and any number of channels solve.  "auto" takes the
+tiled assembly for up to 3 channels and the separable one above, as JAX's
+"auto" leaves its fused kernel for xla_sep.  All return the same
+[n, 8, 8] Gram, so the LM loop is one.
 
 Host loop instead of a device while loop.  JAX runs the LM iterations in a
 lax.while_loop and shrinks the batch with a compaction cascade.  Here each
@@ -56,7 +59,7 @@ import torch
 from correlation_tpu_torch.config import ErrorCode, SolverConfig
 from correlation_tpu_torch.models.warp import translate_params, warp_points
 from correlation_tpu_torch.ops import assemble_v2 as v2
-from correlation_tpu_torch.ops.assemble import field_assemble
+from correlation_tpu_torch.ops.assemble import field_assemble, sep_assemble
 from correlation_tpu_torch.ops.interp import (
     InterpField,
     precompute_field,
@@ -81,18 +84,20 @@ class LevelArrays(NamedTuple):
     n_points: torch.Tensor  # [S] float32
     pix: torch.Tensor  # [S, 5 + max(C, 3), P] pixel rows (v2.pack_pixels)
     bbox: torch.Tensor  # [S, 4, 2] undeformed bounding-box corners
-    def_img: torch.Tensor | None  # tiled: [Hp, Wp, C] padded deformed image
+    def_img: torch.Tensor | None  # tiled / sep: [Hp, Wp, C] padded image
     img_hw: tuple[int, int]  # true deformed-image dims
     def_field: InterpField | None = None  # field: the deformed image's
 
 
 class LevelStatic(NamedTuple):
-    """Per-level tile and image dims."""
+    """Per-level tile and image dims, and which tiled assembly reads them:
+    the fused kernel, or with `sep` the separable one."""
 
     tile_h: int
     tile_w: int
     img_h: int
     img_w: int
+    sep: bool = False
 
 
 class LevelResult(NamedTuple):
@@ -115,12 +120,21 @@ class CorrelationResult(NamedTuple):
 def _make_assemble(cfg: SolverConfig, level: LevelArrays,
                    static: LevelStatic | None):
     """assemble(params [S, NP], idx int32 [n]) -> [n, 8, 8]: the field
-    assembly where the level carries a field, else the tiled one."""
+    assembly where the level carries a field, the separable one where the
+    statics say `sep`, else the fused one."""
     if level.def_field is not None:
         def assemble(params, idx):
             return field_assemble(cfg.model, cfg.interpolation,
                                   level.def_field, level.pix, level.center,
                                   params, idx)
+
+        return assemble
+    if static.sep:
+        def assemble(params, idx):
+            return sep_assemble(cfg.model, cfg.interpolation, static.tile_h,
+                                static.tile_w, static.img_h, static.img_w,
+                                level.def_img, level.pix, level.center,
+                                params, idx)
 
         return assemble
     device = level.def_img.device
@@ -173,7 +187,7 @@ def solve_level(
     params0: [S, NP] guesses at this level's scale; skip: [S] bool, subsets
     frozen by earlier failures, left untouched (their rows of the result
     are not meaningful and are not read by correlate_prepared); static:
-    the level's tile dims (the tiled assembly only).
+    the level's tile dims (the tiled and separable assemblies only).
     """
     s, num_p = params0.shape
     dev = params0.device
@@ -285,17 +299,18 @@ def solve_level(
 
 
 def compute_level_statics(
-    cfg: SolverConfig, subsets, def_pyramid
+    cfg: SolverConfig, subsets, def_pyramid, sep: bool = False
 ) -> dict[int, LevelStatic]:
     """Tile dims per level: the subset extent + halo + tile_margin, in
-    multiples of 8, capped at the image dims rounded up to 8."""
+    multiples of 8, capped at the image dims rounded up to 8; the same for
+    both tiled assemblies (`sep`: the separable one), as in JAX."""
     out = {}
     for lvl in cfg.pyramid.levels_coarse_to_fine():
         ext_y, ext_x = subsets.extents[lvl]
         h, w = int(def_pyramid[lvl].shape[-3]), int(def_pyramid[lvl].shape[-2])
         hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
         th, tw = v2.choose_tile(ext_y, ext_x, hp, wp, cfg.tile_margin)
-        out[lvl] = LevelStatic(th, tw, h, w)
+        out[lvl] = LevelStatic(th, tw, h, w, sep)
     return out
 
 
@@ -311,9 +326,9 @@ def prepare_levels(
 ) -> dict[int, LevelArrays]:
     """LevelArrays for every level in the schedule: undeformed intensities
     sampled once per level, pixel rows packed, and (unless skip_def) the
-    deformed image: padded to the tile dims of `statics` for the tiled
-    assembly, or, with statics None, its coefficient field for the field
-    assembly."""
+    deformed image: zero-padded only up to the tile dims of `statics` for
+    the tiled and separable assemblies (as JAX pads for xla_sep), or, with
+    statics None, its coefficient field for the field assembly."""
     out = {}
     for lvl in cfg.pyramid.levels_coarse_to_fine():
         xy, mask = xy_levels[lvl], mask_levels[lvl]
@@ -402,7 +417,7 @@ def resolve_device(cfg: SolverConfig, device=None, like=None,
     """Where a solve runs: the mesh's device when there is a mesh (a
     `device` that names another raises ValueError), else `device` when
     the caller names one, else the device of `like` when it is a tensor,
-    else the card for backends "cuda", "auto" and "field" (raising
+    else the card for backends "cuda", "auto", "sep" and "field" (raising
     RuntimeError when there is none) and the CPU for backend "torch"."""
     if mesh is not None:
         if device is not None and not _same_device(device, mesh.device):
@@ -436,26 +451,30 @@ def _same_device(device, mesh_device: torch.device) -> bool:
 MAX_CHANNELS = 3  # the tiled assembly's (the fused kernel's) limit
 
 
-def uses_field(cfg: SolverConfig, channels: int) -> bool:
-    """Whether images of `channels` channels take the coefficient-field
-    assembly: backend "field", and "auto" above MAX_CHANNELS (as the JAX
-    package's "auto" leaves its fused kernel for them)."""
-    return cfg.backend == "field" or (
-        cfg.backend == "auto" and channels > MAX_CHANNELS)
+def resolve_assembly(cfg: SolverConfig, channels: int) -> str:
+    """The assembly images of `channels` channels take: "field" (backend
+    "field"), "sep" (backend "sep", and "auto" above MAX_CHANNELS, as the
+    JAX package's "auto" leaves its fused kernel for xla_sep there) or
+    "tiled" (the fused kernel or its plain version)."""
+    if cfg.backend in ("field", "sep"):
+        return cfg.backend
+    if cfg.backend == "auto" and channels > MAX_CHANNELS:
+        return "sep"
+    return "tiled"
 
 
 def check_channels(cfg: SolverConfig, shape, what: str) -> None:
     """Raise ValueError, before any work on the device, when images of
     `shape` (channels last) carry more channels than the chosen assembly
     takes: the tiled one (backends "cuda" and "torch") takes at most
-    MAX_CHANNELS; "auto" and "field" solve any number on the
-    coefficient-field assembly."""
-    if shape[-1] > MAX_CHANNELS and not uses_field(cfg, shape[-1]):
+    MAX_CHANNELS; "auto", "sep" and "field" solve any number."""
+    channels = shape[-1]
+    if channels > MAX_CHANNELS and resolve_assembly(cfg, channels) == "tiled":
         raise ValueError(
-            f"{what} have {shape[-1]} channels; backend {cfg.backend!r} "
+            f"{what} have {channels} channels; backend {cfg.backend!r} "
             f"takes at most {MAX_CHANNELS} (the fused assembly's limit); "
-            "backends 'auto' and 'field' solve them on the "
-            "coefficient-field assembly")
+            "backends 'auto' and 'sep' solve them on the separable-tile "
+            "assembly, 'field' on the coefficient-field one")
 
 
 def _as_f32(a, device):
@@ -510,12 +529,13 @@ def correlate_many(
 ) -> list[CorrelationResult]:
     """Solve several independent domains over one frame pair.
 
-    The pyramids are cast to `device` once.  On the tiled assembly each
-    domain keeps its own tile dims per level (compute_level_statics), so a
-    big blob beside small sectors does not widen their tiles, as
-    combine_batches would; on the field assembly the fields are built once
-    for all domains.  The domains solve one after another.  Each result
-    equals the domain's own correlate call bit for bit.
+    The pyramids are cast to `device` once.  On the tiled and separable
+    assemblies each domain keeps its own tile dims per level
+    (compute_level_statics), so a big blob beside small sectors does not
+    widen their tiles, as combine_batches would; on the field assembly the
+    fields are built once for all domains.  The domains solve one after
+    another.  Each result equals the domain's own correlate call bit for
+    bit.
 
     batches: domains.SubsetBatch list; params0_list: per-domain [S_i, NP]
     guesses at level-0 scale; device: as correlate.
@@ -531,14 +551,16 @@ def correlate_many(
     und = [_as_f32(a, device) for a in und_pyramid]
     dfm = [_as_f32(a, device) for a in def_pyramid]
     fields = None
-    if uses_field(cfg, dfm[0].shape[-1]):
+    assembly = resolve_assembly(cfg, dfm[0].shape[-1])
+    if assembly == "field":
         fields = {lvl: precompute_field(dfm[lvl], cfg.interpolation)
                   for lvl in cfg.pyramid.levels_coarse_to_fine()}
     out = []
     for subsets, params0 in zip(batches, params0_list):
         batch = subsets.to_device(device)
         if fields is None:
-            statics = compute_level_statics(cfg, subsets, dfm)
+            statics = compute_level_statics(cfg, subsets, dfm,
+                                            sep=assembly == "sep")
             levels = prepare_levels(
                 cfg, und, dfm, batch.xy, batch.mask, batch.center0, statics
             )
@@ -610,8 +632,9 @@ def correlate_frames(
     p_seed / prev_seed / chi_seed / it_seed / off_seed / ucen_seed: the
     state entering the chunk (defaults: guess0, guess0, zeros, zeros, zeros,
     subsets.center0); interop converts a JAX carry.  statics: per-level
-    LevelStatic of the tiled assembly (default: from the stack's shape).
-    On the field assembly (uses_field) each pair's deformed levels get
+    LevelStatic of the tiled or separable assembly (default: from the
+    stack's shape and resolve_assembly).
+    On the field assembly (resolve_assembly) each pair's deformed levels get
     their coefficient fields in the frame loop, never the whole stack's
     at once (one bicubic field of a 1024 x 1024 frame is 67 MB).
 
@@ -630,11 +653,13 @@ def correlate_frames(
     frames = _as_f32(frames_stack, device)
     k = frames.shape[0] - 1
     pyr = build_pyramid(frames, cfg.pyramid.stop)
-    field = uses_field(cfg, frames.shape[-1])
+    assembly = resolve_assembly(cfg, frames.shape[-1])
+    field = assembly == "field"
     if field:
         statics = None
     elif statics is None:
-        statics = compute_level_statics(cfg, subsets, pyr)
+        statics = compute_level_statics(cfg, subsets, pyr,
+                                        sep=assembly == "sep")
     num_subsets = subsets.num_subsets
     if mesh is not None:
         subsets, guess0 = shard_inputs(mesh, subsets, guess0)
@@ -646,7 +671,7 @@ def correlate_frames(
     schedule = cfg.pyramid.levels_coarse_to_fine()
 
     # Frame-invariant work leaves the frame loop: the padded deformed
-    # levels of the whole stack (tiled) and, for the Eulerian
+    # levels of the whole stack (tiled and separable) and, for the Eulerian
     # reference-First chain, the reference frame's level arrays.
     prepped = None if field else {
         lvl: v2.prepare_image(pyr[lvl], statics[lvl].tile_h,

@@ -5,4 +5,9 @@ version and a command-line entry point that times both on the card:
 
   python -m correlation_tpu_torch.experiments.exp_gather
   python -m correlation_tpu_torch.experiments.exp_matmul_overhead [loop batched gram vpu]
+
+and the port of experiments/profile_bench.py, the dense-grid solve's time
+split by phase on the card:
+
+  python -m correlation_tpu_torch.experiments.profile_bench
 """

@@ -1,0 +1,183 @@
+"""Per-phase wall-time split of the dense-grid solve on the card.
+
+Port of experiments/profile_bench.py.  At the bench's shapes
+(problems.dense_grid_problem(4096): a 1024x1024 speckle pair shifted one
+row, 4096 21x21 subsets, AFFINE / BICUBIC, pyramid levels 2-1-0) it times
+  - correlate on one pair (mean of 5 after a warm call),
+  - prepare_levels (the per-pair, iteration-invariant work),
+  - solve_level per pyramid level, with the mean iterations reached,
+  - the fused assembly (K1) per level, 20 launches chained through their
+    parameters (each adds 1e-9 b to them), replayed from a CUDA graph,
+  - ops/solve.lm_delta alone, 50 calls chained the same way (from a CUDA
+    graph, and issued eagerly as the LM loop issues it),
+  - solve_level at level 0 with the assembly replaced by a stub that
+    returns a fixed, well-conditioned system (identity A, constant b, a
+    chi that falls slowly, so that every subset runs max_iterations
+    steps): the host loop's floor, an LM iteration over all 4096 subsets
+    without the assembly.
+The stub is installed here alone, over assemble_v2.fused_assemble, and
+removed before the function returns.  Eager calls are timed between two
+CUDA events after a warm call (utils/profiling.cuda_time_ms): the
+host's issue and its waits included, as a caller sees them.
+
+Run on a machine with an NVIDIA GPU:
+
+  python -m correlation_tpu_torch.experiments.profile_bench
+
+The first line gives the card's name and power limit (nvidia-smi).  There
+is no CPU fallback: without a CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NUM_SUBSETS = 4096
+
+
+def _stub_assemble(calls: list):
+    """A fused_assemble stand-in: A = I, b = 1 in every row, chi =
+    1e6 / (1 + |p|^2), no bad pixel.  Every step then moves each parameter
+    by about 1 and lowers chi by a relative 2 / k or so at step k, far
+    above the 1e-3 precision at the dense grid's 441 px a subset, so
+    every subset runs max_iterations steps.  It counts its calls into
+    `calls`."""
+
+    def stub(model, interp, tile_h, tile_w, img_h, img_w, img, pix, center,
+             params, bbox, idx=None):
+        p = params if idx is None else params[idx.long()]
+        n, num_p = p.shape
+        out = torch.zeros((n, 8, 8), dtype=torch.float32, device=p.device)
+        out[:, :num_p, :num_p] = torch.eye(num_p, device=p.device)
+        out[:, :num_p, num_p] = 1.0
+        out[:, num_p, :num_p] = 1.0
+        out[:, num_p, num_p] = 1e6 / (1.0 + (p * p).sum(dim=-1))
+        calls.append(n)
+        return out
+
+    return stub
+
+
+def main() -> dict[str, float]:
+    """Print one line a phase and return the times, {phase: ms}."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_bench runs on a CUDA device; none is "
+                           "available")
+    from correlation_tpu_torch.engine import (
+        compute_level_statics,
+        correlate,
+        prepare_levels,
+        solve_level,
+    )
+    from correlation_tpu_torch.models.warp import translate_params
+    from correlation_tpu_torch.ops import assemble_v2 as v2
+    from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.ops.solve import lm_delta
+    from correlation_tpu_torch.problems import dense_grid_problem
+    from correlation_tpu_torch.utils.profiling import (
+        card_name_and_power,
+        cuda_time_ms,
+        graph_ms,
+    )
+
+    dev = torch.device("cuda")
+    cfg, und, dfm, batch, params0 = dense_grid_problem(NUM_SUBSETS)
+    print(f"profile_bench ({card_name_and_power()}): {NUM_SUBSETS} subsets, "
+          f"{cfg.model.name} / {cfg.interpolation.name}, levels "
+          f"{cfg.pyramid.levels_coarse_to_fine()}")
+    pair = torch.as_tensor(np.stack([und, dfm])[..., None], device=dev)
+    pyr = build_pyramid(pair, cfg.pyramid.stop)
+    und_pyr = [level[0] for level in pyr]
+    def_pyr = [level[1] for level in pyr]
+    statics = compute_level_statics(cfg, batch, def_pyr)
+    print("statics:", statics)
+    gb = batch.to_device(dev)
+    p0 = torch.as_tensor(params0, device=dev)
+    times = {}
+
+    times["correlate"] = cuda_time_ms(
+        lambda: correlate(cfg, und_pyr, def_pyr, batch, p0, device=dev), 5)
+    print(f"total correlate:        {times['correlate']:9.3f} ms")
+
+    def prep():
+        return prepare_levels(cfg, und_pyr, def_pyr, gb.xy, gb.mask,
+                              gb.center0, statics)
+
+    times["prepare_levels"] = cuda_time_ms(prep, 10)
+    print(f"prepare_levels:         {times['prepare_levels']:9.3f} ms")
+
+    levels = prep()
+    schedule = cfg.pyramid.levels_coarse_to_fine()
+    skip = torch.zeros(NUM_SUBSETS, dtype=torch.bool, device=dev)
+    p, prev = p0, 0
+    for lvl in schedule:
+        p_l = translate_params(p, prev, lvl)
+
+        def solve(lvl=lvl, p_l=p_l):
+            return solve_level(cfg, levels[lvl], p_l, skip, statics[lvl])
+
+        times[f"solve_level_L{lvl}"] = cuda_time_ms(solve, 5)
+        launches = v2.LAUNCHES
+        res = solve()
+        loops = v2.LAUNCHES - launches - 1  # less the initial assembly
+        print(f"solve_level L{lvl}:       {times[f'solve_level_L{lvl}']:9.3f} "
+              f"ms  (iters reached: {res.reached.float().mean():.2f}; "
+              f"{loops} loop iterations, "
+              f"{times[f'solve_level_L{lvl}'] / max(loops, 1):.3f} ms each)")
+        p = torch.where(~res.init_fail[:, None], res.params, p_l)
+        prev = lvl
+
+    # The fused assembly per level, chained through its parameters.
+    num_p = cfg.num_params
+    for lvl in schedule:
+        la, st = levels[lvl], statics[lvl]
+        pp = translate_params(p0, 0, lvl).clone()
+
+        def step(la=la, st=st, pp=pp):
+            out = v2.fused_assemble(
+                cfg.model, cfg.interpolation, st.tile_h, st.tile_w, st.img_h,
+                st.img_w, la.def_img, la.pix, la.center, pp, la.bbox)
+            pp.add_(1e-9 * out[:, :num_p, num_p])
+
+        times[f"assembly_L{lvl}"] = graph_ms(step, 20)
+        print(f"assembly L{lvl} (chained): {times[f'assembly_L{lvl}']:9.3f} "
+              "ms/assembly (CUDA graph of 20)")
+
+    # lm_delta alone, chained.
+    a = torch.eye(num_p, device=dev).repeat(NUM_SUBSETS, 1, 1) * 50.0
+    bb = torch.ones((NUM_SUBSETS, num_p), device=dev)
+    lam = torch.full((NUM_SUBSETS,), 1e-4, device=dev)
+    scal = torch.full((NUM_SUBSETS,), 1.0 / 441, device=dev)
+
+    def lm_step():
+        bb.add_(1e-9 * lm_delta(a, bb, lam, scal))
+
+    times["lm_delta"] = graph_ms(lm_step, 50)
+    times["lm_delta_eager"] = cuda_time_ms(lm_step, 50)
+    print(f"lm_delta (chained):     {times['lm_delta']:9.3f} ms/call (CUDA "
+          f"graph of 50), {times['lm_delta_eager']:.3f} ms/call eager")
+
+    # The host loop's floor: solve_level with the assembly stubbed.
+    calls: list = []
+    orig = v2.fused_assemble
+    v2.fused_assemble = _stub_assemble(calls)
+    try:
+        times["stub_solve_L0"] = cuda_time_ms(
+            lambda: solve_level(cfg, levels[0], p0, skip, statics[0]), 5)
+        calls.clear()
+        res = solve_level(cfg, levels[0], p0, skip, statics[0])
+        torch.cuda.synchronize()
+    finally:
+        v2.fused_assemble = orig
+    loops = len(calls) - 1  # the first call is the initial assembly
+    times["stub_ms_per_iteration"] = times["stub_solve_L0"] / max(loops, 1)
+    print(f"solve_level L0 w/ stub assembly: {times['stub_solve_L0']:9.3f} ms "
+          f"({loops} loop iterations, "
+          f"{times['stub_ms_per_iteration']:.3f} ms each; iters reached: "
+          f"{res.reached.float().mean():.2f})")
+    return times
+
+
+if __name__ == "__main__":
+    main()

@@ -33,11 +33,13 @@ from correlation_tpu_torch.domains import (
     _level_extents,
 )
 
-# JAX assembly backends.  "xla", the coefficient-field assembly, maps to
-# the port's "field"; the others map to "auto", which picks the CUDA
-# kernel or its plain version by the device of the tensors (and the field
-# assembly above 3 channels).
-_JAX_BACKENDS = ("auto", "pallas", "pallas_dma", "xla_sep", "xla")
+# JAX assembly backends and the port's for each: "xla_sep", the
+# separable tiles, maps to "sep", "xla", the coefficient field, to
+# "field", and the fused kernel ("pallas", "pallas_dma") to "auto", which
+# picks the CUDA kernel or its plain version by the device of the tensors
+# (and the separable tiles above 3 channels, as JAX's "auto" does).
+_JAX_BACKENDS = {"auto": "auto", "pallas": "auto", "pallas_dma": "auto",
+                 "xla_sep": "sep", "xla": "field"}
 # JAX SolverConfig fields the port has no counterpart for: they schedule
 # the straggler compaction of the JAX while loop, which leaves every
 # subset's result unchanged, and the port's host loop has no compaction.
@@ -91,8 +93,7 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
     backend = d.pop("backend", "auto")
     if backend not in _JAX_BACKENDS and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "xla":
-        backend = "field"
+    backend = _JAX_BACKENDS.get(backend, backend)
     pyramid = d.pop("pyramid", {})
     if not isinstance(pyramid, PyramidConfig):
         pyramid = PyramidConfig(**dict(pyramid))
@@ -102,7 +103,7 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
         model=model,
         interpolation=interp,
         pyramid=pyramid,
-        backend=backend if backend in BACKENDS else "auto",
+        backend=backend,
         **d,
     )
 

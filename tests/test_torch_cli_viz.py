@@ -82,11 +82,18 @@ def _assert_reports_match(got_path, ref_path):
                                            atol=5e-4, err_msg=col)
 
 
-@pytest.mark.parametrize("mode", ["rect", "auto-guess"])
+@pytest.mark.parametrize("mode", ["rect", "auto-guess", "sep"])
 def test_cli_report_matches_jax(tmp_path, mode):
-    if mode == "rect":
+    """The 4-frame rectangle run (under "auto", and under JAX's
+    --backend xla_sep against the port's --backend sep) and a seeded
+    pair."""
+    jax_extra = port_extra = []
+    if mode in ("rect", "sep"):
         paths = _write_frames(tmp_path, 4, 0.6, -0.4)
         extra = []
+        if mode == "sep":
+            jax_extra = ["--backend", "xla_sep"]
+            port_extra = ["--backend", "sep"]
     else:
         # The second frame is 11 px away: beyond the 2-level pyramid's
         # reach from a zero guess, seeded per sector.
@@ -95,8 +102,9 @@ def test_cli_report_matches_jax(tmp_path, mode):
         extra = ["--rect", "40", "40", "88", "88", "--auto-guess",
                  "--auto-guess-win", "64"]
     ref, got = str(tmp_path / "jax.csv"), str(tmp_path / "port.csv")
-    assert jax_main(paths + RECT + extra + ["--report", ref]) == 0
-    assert cli.main(paths + RECT + extra + ["--cpu", "--report", got]) == 0
+    assert jax_main(paths + RECT + extra + jax_extra + ["--report", ref]) == 0
+    assert cli.main(paths + RECT + extra + port_extra
+                    + ["--cpu", "--report", got]) == 0
     _assert_reports_match(got, ref)
     if mode == "auto-guess":
         for row in _rows(got):

@@ -136,6 +136,7 @@ def test_import_leaves_jax_out():
         "correlation_tpu_torch.utils.profiling, "
         "correlation_tpu_torch.experiments.exp_gather, "
         "correlation_tpu_torch.experiments.exp_matmul_overhead, "
+        "correlation_tpu_torch.experiments.profile_bench, "
         "correlation_tpu_torch.cli, correlation_tpu_torch.viz, "
         "correlation_tpu_torch.ops.seed, correlation_tpu_torch.ops.assemble, "
         "correlation_tpu_torch.parallel, correlation_tpu_torch.parallel.mesh, "

@@ -277,8 +277,9 @@ def test_more_than_three_channels_raise_before_device_work(monkeypatch,
                                                            entry):
     """Four channels under the tiled assembly's backends ("cuda", "torch")
     raise a ValueError that names the 3-channel limit before a device is
-    even chosen; "auto" and "field" solve them on the coefficient-field
-    assembly, and recover the motion."""
+    even chosen; "auto" and "sep" solve them on the separable-tile
+    assembly, "field" on the coefficient-field one, and recover the
+    motion."""
     from correlation_tpu_torch import sequence
 
     def no_device(*args, **kwargs):
@@ -308,7 +309,7 @@ def test_more_than_three_channels_raise_before_device_work(monkeypatch,
         for backend in ("cuda", "torch"):
             with pytest.raises(ValueError, match="4 channels.*at most 3"):
                 run(backend)
-    for backend in ("auto", "field"):
+    for backend in ("auto", "sep", "field"):
         np.testing.assert_allclose(run(backend), [0.4, 0.2], atol=0.02)
 
 

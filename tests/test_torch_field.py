@@ -316,9 +316,10 @@ def test_warp_beyond_tile_margin_solves_on_the_field():
 
 
 def test_four_channels_under_auto_match_jax_auto_on_interior_subsets():
-    """Four channels: the port's "auto" takes the field assembly, JAX's
-    "auto" its separable tiles (xla_sep); on interior subsets, whose tiles
-    never matter, the two solve alike."""
+    """Four channels: the port's "auto" and JAX's both take the separable
+    tiles ("sep", xla_sep) and solve alike on interior subsets (on every
+    subset in test_torch_sep.py); the field assembly, which takes four
+    channels too, stays selectable."""
     spk = Speckle(128, 128, seed=31)
     und1 = spk.image(quantize=True)
     dfm1 = spk.warped_image(u=1.3, v=-0.6, quantize=True)
@@ -332,7 +333,8 @@ def test_four_channels_under_auto_match_jax_auto_on_interior_subsets():
     ref = jax_correlate(JSolver(pyramid=JPyramid(0, 1, 2)), up, dp,
                         jax_make_batch(subsets, None, 2), guesses)
     cfg = SolverConfig(pyramid=PyramidConfig(0, 1, 2))
-    assert engine.uses_field(cfg, 4) and not engine.uses_field(cfg, 3)
+    assert engine.resolve_assembly(cfg, 4) == "sep"
+    assert engine.resolve_assembly(cfg, 3) == "tiled"
     got = engine.correlate(cfg, [np.asarray(a) for a in up],
                            [np.asarray(a) for a in dp],
                            make_batch(subsets, None, 2), guesses, device="cpu")
@@ -345,6 +347,6 @@ def test_four_channels_under_auto_match_jax_auto_on_interior_subsets():
 
 def test_interop_maps_xla_to_field():
     assert solver_config_from_dict({"backend": "xla"}).backend == "field"
-    assert solver_config_from_dict({"backend": "xla_sep"}).backend == "auto"
+    assert solver_config_from_dict({"backend": "xla_sep"}).backend == "sep"
     assert solver_config_from_dict({"backend": "field"}).backend == "field"
     assert solver_config_from_dict({"backend": "pallas"}).backend == "auto"

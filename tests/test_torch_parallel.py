@@ -10,10 +10,12 @@ tests).
 
 Tolerances: a shard keeps the whole batch's padded point counts, extents
 and tiles and the LM step is row-wise, so sharded equals unsharded bit
-for bit (torch.equal) in every solve.  Against JAX: the tiled path within
-test_torch_engine.py's PARAM_ATOL / CHI_RTOL of JAX's Pallas solve, the
-field path within test_torch_field.py's tolerances of JAX's "xla" solve on
-its 8-device mesh, and the pixel-sharded assembly within JAX's own test's
+for bit (torch.equal) in every solve, the separable-tile ones ("sep")
+included.  Against JAX: the tiled path within test_torch_engine.py's
+PARAM_ATOL / CHI_RTOL of JAX's Pallas solve, the separable one within the
+same of JAX's "xla_sep" solve on its 8-device mesh, the field path within
+test_torch_field.py's tolerances of JAX's "xla" solve on its 8-device
+mesh, and the pixel-sharded assembly within JAX's own test's
 rtol (1e-5 on A and b, 1e-6 on chi) of the unsharded assembly and of
 JAX's, but b against JAX within test_torch_field.py's tolerance, err equal.
 """
@@ -203,7 +205,8 @@ def solve_cases(mesh, workdir):
     und_pyr, def_pyr = _pyramids(und, dfm)
     batch = make_batch(pts, None, 1)
     guess = np.zeros((5, 2), np.float32)
-    for name, backend in (("correlate", "auto"), ("correlate_field", "field")):
+    for name, backend in (("correlate", "auto"), ("correlate_sep", "sep"),
+                          ("correlate_field", "field")):
         res = engine.correlate(_solver(backend), und_pyr, def_pyr, batch,
                                guess, device="cpu", mesh=mesh)
         out[name] = res._asdict()
@@ -211,10 +214,11 @@ def solve_cases(mesh, workdir):
     stack, fpts = frames_problem()
     fbatch = make_batch(fpts, None, 1)
     fguess = np.zeros((5, 2), np.float32)
-    for name, kw in (("frames_euler", {}),
-                     ("frames_lagr", dict(reference_first=False,
-                                          lagrangian=True))):
-        res = engine.correlate_frames(_solver(), stack, fbatch, fguess,
+    lagr = dict(reference_first=False, lagrangian=True)
+    for name, backend, kw in (("frames_euler", "auto", {}),
+                              ("frames_lagr", "auto", lagr),
+                              ("frames_lagr_sep", "sep", lagr)):
+        res = engine.correlate_frames(_solver(backend), stack, fbatch, fguess,
                                       device="cpu", mesh=mesh, **kw)
         out[name] = _frames_out(res)
 
@@ -333,9 +337,9 @@ def _assert_equal(got: dict, want: dict, what: str):
 
 # ---- sharded == unsharded, bit for bit -------------------------------------
 
-SOLVE_CASES = ["correlate", "correlate_field", "frames_euler", "frames_lagr",
-               "seq_euler", "seq_euler_field", "seq_lagr", "seq_strict",
-               "seq_lagr_stop"]
+SOLVE_CASES = ["correlate", "correlate_sep", "correlate_field",
+               "frames_euler", "frames_lagr", "frames_lagr_sep", "seq_euler",
+               "seq_euler_field", "seq_lagr", "seq_strict", "seq_lagr_stop"]
 
 
 @pytest.mark.parametrize("case", SOLVE_CASES)
@@ -448,6 +452,16 @@ def test_sharded_field_solve_matches_jax_xla_on_its_mesh(ranks):
     ref = _jax_correlate("xla", jax_make_mesh())
     _assert_close_solve(ranks[0]["sharded"]["correlate_field"], ref,
                         FIELD_PARAM_ATOL, FIELD_CHI_RTOL)
+
+
+def test_sharded_sep_solve_matches_jax_xla_sep_on_its_mesh(ranks):
+    """JAX "xla_sep" sharded over its 8 virtual devices against the port's
+    "sep" over two ranks."""
+    from correlation_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    ref = _jax_correlate("xla_sep", jax_make_mesh())
+    _assert_close_solve(ranks[0]["sharded"]["correlate_sep"], ref,
+                        PARAM_ATOL, CHI_RTOL)
 
 
 def test_sharded_field_sequence_matches_jax_xla_on_its_mesh(ranks):
