@@ -77,8 +77,12 @@ Phases, one informational line each:
      trace file; then --auto-guess on a pair shifted by 40 px, beyond the
      3-level pyramid's capture range, which must recover the shift within
      0.02 px; and the first run again with --shard under torchrun (NCCL, a
-     world of one), whose report must equal the unsharded one; with each
-     wall time;
+     world of one), whose report must equal the unsharded one; the first
+     run again under a JAX command line, --backend pallas --compact-stages
+     0 ("pallas" takes "auto", the fused kernel), whose report must equal
+     the first byte for byte; and --cpu --backend cuda on the same frames,
+     which must exit 2 with resolve_device's message and no traceback;
+     with each wall time;
  12. mesh: the subset-sharded solves and the pixel-sharded assembly over
      torch.distributed (correlation_tpu_torch.parallel), each rank a
      subprocess of this script (--mesh-worker) under a timeout: (a) NCCL,
@@ -1140,34 +1144,51 @@ def surface_phase(torch, smi):
             paths.append(str(work / f"frame_{t}.png"))
             Image.fromarray(f[..., 0]).save(paths[-1])
 
-        def cli(args, what, launcher=()):
+        def cli(args, what, launcher=(), code=0):
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, *launcher, "-m", "correlation_tpu_torch.cli",
                  *args],
                 cwd=REPO, capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
-            check(proc.returncode == 0,
-                  f"{what}: the CLI exited {proc.returncode}: "
+            check(proc.returncode == code,
+                  f"{what}: the CLI exited {proc.returncode}, not {code}: "
                   f"{proc.stderr[-2000:]}")
-            return wall
+            return wall, proc.stderr
 
         report = work / "drift.csv"
         plots, prof = work / "plots", work / "trace"
         grid = ["--rect", "100", "100", "900", "880", "--subdivisions", "16",
                 "16"]
-        wall = cli(paths + grid + ["--report", str(report), "--plot-dir",
-                                   str(plots), "--plot-points", "--profile",
-                                   str(prof)], "drift")
+        wall, _ = cli(paths + grid + ["--report", str(report), "--plot-dir",
+                                      str(plots), "--plot-points",
+                                      "--profile", str(prof)], "drift")
         # The same run with --shard under torchrun: NCCL, a world of one
         # (one card), whose report must equal the unsharded run's.
         sharded = work / "drift_shard.csv"
-        wall_shard = cli(paths + grid + ["--report", str(sharded), "--shard"],
-                         "drift --shard",
-                         ("-m", "torch.distributed.run", "--standalone",
-                          "--nproc_per_node=1"))
+        wall_shard, _ = cli(paths + grid + ["--report", str(sharded),
+                                            "--shard"],
+                            "drift --shard",
+                            ("-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node=1"))
         check(sharded.read_bytes() == report.read_bytes(),
               "drift --shard: the report differs from the unsharded run's")
+        # A JAX command line, unchanged: "pallas" takes "auto" (the fused
+        # kernel on the card) and --compact-stages is read by nothing.
+        jax_report = work / "drift_pallas.csv"
+        wall_jax, _ = cli(paths + grid + ["--report", str(jax_report),
+                                          "--backend", "pallas",
+                                          "--compact-stages", "0"],
+                          "drift --backend pallas")
+        check(jax_report.read_bytes() == report.read_bytes(),
+              "drift --backend pallas: the report differs from drift.csv")
+        # The CUDA kernel's backend on the CPU: an argument error, refused
+        # before any frame is decoded.
+        wall_bad, err = cli(paths + grid + ["--cpu", "--backend", "cuda"],
+                            "--cpu --backend cuda", code=2)
+        check("backend 'cuda' solves on a cuda device, not on cpu" in err
+              and "Traceback" not in err,
+              f"--cpu --backend cuda: stderr {err[-2000:]!r}")
         with open(report) as f:
             rows = list(csv.DictReader(f))
         check(len(rows) == 7 * 256, f"drift: {len(rows)} report rows")
@@ -1202,10 +1223,11 @@ def surface_phase(torch, smi):
         Image.fromarray(big[:, 40:1064].astype(np.uint8)).save(shifted[0])
         Image.fromarray(big[:, 0:1024].astype(np.uint8)).save(shifted[1])
         seeded = work / "shift.csv"
-        wall_seed = cli(shifted + ["--rect", "200", "200", "824", "824",
-                                   "--subdivisions", "16", "16",
-                                   "--auto-guess", "--auto-guess-win", "128",
-                                   "--report", str(seeded)], "auto-guess")
+        wall_seed, _ = cli(shifted + ["--rect", "200", "200", "824", "824",
+                                      "--subdivisions", "16", "16",
+                                      "--auto-guess", "--auto-guess-win",
+                                      "128", "--report", str(seeded)],
+                           "auto-guess")
         with open(seeded) as f:
             rows = list(csv.DictReader(f))
         uv = np.array([[float(r["parameter_0"]), float(r["parameter_1"])]
@@ -1221,8 +1243,10 @@ def surface_phase(torch, smi):
               f"{kernels} device kernels) in {wall:.2f} s wall, median (u, v) "
               f"within {worst:.5f} of the drift; the same under torchrun "
               f"with --shard (NCCL, a world of one, no overlays or trace): "
-              f"the same report in {wall_shard:.2f} s wall; --auto-guess on "
-              f"a 40 px "
+              f"the same report in {wall_shard:.2f} s wall; the same report "
+              f"under --backend pallas --compact-stages 0 in {wall_jax:.2f} s "
+              f"wall; --cpu --backend cuda exits 2 with resolve_device's "
+              f"message in {wall_bad:.2f} s wall; --auto-guess on a 40 px "
               f"shift: 256 sectors within {off:.5f} px of (40, 0) in "
               f"{wall_seed:.2f} s wall; phase wall "
               f"{time.perf_counter() - phase_t0:.1f} s")

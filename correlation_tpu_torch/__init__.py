@@ -14,10 +14,13 @@ reference it is tested against.
 """
 
 from correlation_tpu_torch.config import (
+    DeformationDescription,
     ErrorCode,
+    ErrorMode,
     FittingModel,
     Interpolation,
     PyramidConfig,
+    ReferenceImage,
     SolverConfig,
 )
 from correlation_tpu_torch.domains import (
@@ -60,9 +63,12 @@ from correlation_tpu_torch.sequence import (
 )
 
 __all__ = [
+    "DeformationDescription",
     "ErrorCode",
+    "ErrorMode",
     "FittingModel",
     "Interpolation",
+    "ReferenceImage",
     "PyramidConfig",
     "SolverConfig",
     "SubsetBatch",

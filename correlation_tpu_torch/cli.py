@@ -15,12 +15,15 @@ solves its share of the sectors and holds the whole records; rank 0
 alone writes the report, the checkpoint, the overlays and the trace, and
 prints.
 
-The flags, defaults, messages and exit codes are the JAX package's, except
-that --backend takes the port's backends, --cpu solves on the CPU (without
-it the run needs a CUDA device and exits 1 where there is none),
---profile writes a torch.profiler trace, --shard runs under a launcher
-that starts one process a card (torchrun), and there is no
---compact-stages (the port's LM loop has no compaction).
+The flags, defaults, messages and exit codes are the JAX package's, so a
+JAX command line runs here unchanged: --backend takes the JAX package's
+names as well as the port's (config.JAX_BACKENDS), and --compact-stages
+is passed into SolverConfig, where nothing reads it (the port's LM loop
+solves only the still-active subsets).  The differences: --cpu solves on
+the CPU (without it the run needs a CUDA device and exits 1 where there
+is none; --backend cuda with --cpu, or torch without it, exits 2 before
+any image is decoded), --profile writes a torch.profiler trace, and
+--shard runs under a launcher that starts one process a card (torchrun).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 from correlation_tpu_torch import domains
 from correlation_tpu_torch.config import (
     BACKENDS,
+    JAX_BACKENDS,
     DeformationDescription,
     ErrorMode,
     FittingModel,
@@ -100,19 +104,28 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar=("START", "STEP", "STOP"))
     ap.add_argument("--max-iters", type=int, default=50)
     ap.add_argument("--precision", type=float, default=1e-3)
-    ap.add_argument("--backend", choices=list(BACKENDS), default="auto",
+    ap.add_argument("--backend", choices=[*BACKENDS, *JAX_BACKENDS],
+                    default="auto",
                     help="assembly backend: auto = the fused kernel (its "
                          "plain version on the CPU) up to 3 channels, the "
                          "separable tiles above; cuda / torch = the fused "
                          "kernel / its plain version only; sep = the "
-                         "separable-tile assembly (JAX's xla_sep, any "
-                         "number of channels); field = the "
-                         "coefficient-field assembly (no tile-extent limit "
-                         "on warps, any number of channels)")
+                         "separable-tile assembly (any number of "
+                         "channels); field = the coefficient-field "
+                         "assembly (no tile-extent limit on warps, any "
+                         "number of channels).  The JAX package's names "
+                         "take the port's: "
+                         + ", ".join(f"{j} = {p}"
+                                     for j, p in JAX_BACKENDS.items()))
     ap.add_argument("--tile-margin", type=int, default=8, metavar="PX",
                     help="warp headroom pixels in the fused assembly's "
                          "image tiles beyond subset extent + spline halo "
                          "(default 8); raise for large expected warps")
+    ap.add_argument("--compact-stages", type=int, default=6, metavar="N",
+                    help="the JAX package's straggler-compaction stages, "
+                         "taken for its command lines and read by nothing "
+                         "here: the port's LM loop solves only the "
+                         "still-active subsets")
     ap.add_argument("--guess", nargs="*", type=float,
                     help="global initial guess parameters")
     ap.add_argument("--auto-guess", action="store_true",
@@ -215,6 +228,7 @@ def _run(args, mesh) -> int:
         precision=args.precision,
         backend=args.backend,
         tile_margin=args.tile_margin,
+        compact_stages=args.compact_stages,
     )
     seq_kwargs = (
         {} if args.frame_chunk is None
@@ -315,14 +329,18 @@ def _run(args, mesh) -> int:
             return 2
 
     # The device is chosen before any image is decoded: the card, unless
-    # --cpu asks for the CPU (a rank's, with --shard); no card and no --cpu
-    # ends the run here.
+    # --cpu asks for the CPU (a rank's, with --shard).  No card and no
+    # --cpu ends the run here (1), and so does a backend that does not
+    # solve on the device chosen (2, an argument error).
     try:
         device = resolve_device(solver, "cpu" if args.cpu else None,
                                 mesh=mesh)
     except RuntimeError as err:
         print(err, file=sys.stderr)
         return 1
+    except ValueError as err:
+        print(err, file=sys.stderr)
+        return 2
     if (mesh is not None and mesh.device.type == "cuda"
             and resolve_assembly(solver, 3 if args.color else 1) == "tiled"):
         # Rank 0 builds the fused kernel's library the others then load.

@@ -1,9 +1,10 @@
 """Configuration enums and dataclasses (PyTorch port).
 
 Mirrors correlation_tpu/config.py: the same enums with the same integer
-values, and the same PyramidConfig / SolverConfig defaults, so a
-configuration serialised from one package loads in the other
-(interop.solver_config_from_dict).
+values, and the same PyramidConfig / SolverConfig fields and defaults, so
+a JAX configuration constructs here as it is (its backend names are
+stored as the port's) and one serialised from one package loads in the
+other (interop.solver_config_from_dict).
 """
 
 from __future__ import annotations
@@ -88,6 +89,13 @@ class PyramidConfig:
 
 
 BACKENDS = ("auto", "cuda", "torch", "sep", "field")
+# The JAX package's assembly backends and the port's for each: "xla_sep",
+# the separable tiles, maps to "sep", "xla", the coefficient field, to
+# "field", and the fused kernel ("pallas", "pallas_dma") to "auto", which
+# picks the CUDA kernel or its plain version by the device of the tensors
+# (and the separable tiles above 3 channels, as JAX's "auto" does).
+JAX_BACKENDS = {"pallas": "auto", "pallas_dma": "auto", "xla_sep": "sep",
+                "xla": "field"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,19 +123,31 @@ class SolverConfig:
     # takes the tiled assembly on either device up to 3 channels and the
     # separable one above.  Given numpy input and no device, "torch"
     # solves on the CPU and the others on the card, raising where there is
-    # none (engine.resolve_device).
+    # none (engine.resolve_device).  The JAX package's names are taken too
+    # and stored as the port's (JAX_BACKENDS).
     backend: str = "auto"
     # Extra pixels of warp headroom in the per-subset image tiles: warps
     # that grow the subset span by more than this flag the subset
     # out-of-image.
     tile_margin: int = 8
+    # The JAX package's straggler-compaction schedule (its defaults; 0
+    # stages turns it off there), kept so that a JAX configuration
+    # constructs as it is.  Compaction leaves every subset's result
+    # unchanged, and the port's host loop solves only the still-active
+    # subsets at every iteration, so nothing in the port reads these.
+    compact_stages: int = 6
+    compact_factor: int = 2
+    compact_min: int = 128
 
     @property
     def num_params(self) -> int:
         return NUM_PARAMS[self.model]
 
     def __post_init__(self):
-        if self.backend not in BACKENDS:
+        backend = JAX_BACKENDS.get(self.backend, self.backend)
+        if backend not in BACKENDS:
             raise ValueError(
-                f"unknown backend {self.backend!r}; expected one of {BACKENDS}"
+                f"unknown backend {self.backend!r}; expected one of "
+                f"{BACKENDS} or the JAX package's {tuple(JAX_BACKENDS)}"
             )
+        object.__setattr__(self, "backend", backend)

@@ -137,12 +137,9 @@ def _make_assemble(cfg: SolverConfig, level: LevelArrays,
                                 params, idx)
 
         return assemble
-    device = level.def_img.device
-    need = {"cuda": "cuda", "torch": "cpu"}.get(cfg.backend)
-    if need is not None and device.type != need:
-        raise ValueError(
-            f"backend {cfg.backend!r} needs {need} tensors, got {device}"
-        )
+    # resolve_device has checked this for every entry point; solve_level
+    # and correlate_prepared are public and can be called without it.
+    _check_backend_device(cfg, level.def_img.device)
 
     def assemble(params, idx):
         return v2.fused_assemble(
@@ -418,26 +415,44 @@ def resolve_device(cfg: SolverConfig, device=None, like=None,
     `device` that names another raises ValueError), else `device` when
     the caller names one, else the device of `like` when it is a tensor,
     else the card for backends "cuda", "auto", "sep" and "field" (raising
-    RuntimeError when there is none) and the CPU for backend "torch"."""
+    RuntimeError when there is none) and the CPU for backend "torch".
+    Backend "cuda" on a device that is not CUDA, and "torch" on one that
+    is not the CPU, raise ValueError (_check_backend_device): every entry
+    point calls this before it touches an image."""
     if mesh is not None:
         if device is not None and not _same_device(device, mesh.device):
             raise ValueError(
                 f"device {device} is not the mesh's device {mesh.device}; "
                 "a rank solves on its mesh's device")
-        return mesh.device
-    if device is not None:
-        return torch.device(device)
-    if torch.is_tensor(like):
-        return like.device
-    if cfg.backend == "torch":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+        where = mesh.device
+    elif device is not None:
+        where = torch.device(device)
+    elif torch.is_tensor(like):
+        where = like.device
+    elif cfg.backend == "torch":
+        where = torch.device("cpu")
+    elif not torch.cuda.is_available():
         raise RuntimeError(
             f"backend {cfg.backend!r} solves on a CUDA device and none is "
             "available; pass device='cpu' or use backend 'torch' to solve "
             "on the CPU"
         )
-    return torch.device("cuda")
+    else:
+        where = torch.device("cuda")
+    _check_backend_device(cfg, where)
+    return where
+
+
+def _check_backend_device(cfg: SolverConfig, device: torch.device) -> None:
+    """ValueError unless `device` is one that cfg.backend solves on:
+    backend "cuda" runs the CUDA kernel and "torch" its plain version on
+    the CPU; the others run on either."""
+    need = {"cuda": "cuda", "torch": "cpu"}.get(cfg.backend)
+    if need is not None and device.type != need:
+        raise ValueError(
+            f"backend {cfg.backend!r} solves on a {need} device, not on "
+            f"{device}; backends 'auto', 'sep' and 'field' solve on either"
+        )
 
 
 def _same_device(device, mesh_device: torch.device) -> bool:
@@ -510,7 +525,10 @@ def correlate(
                               [params0], device)[0]
     # The shard keeps the whole batch's extents, so the level statics
     # correlate_many computes from it are the whole batch's.  Every check
-    # that can raise runs before the one collective, alike on every rank.
+    # that can raise runs before the one collective, alike on every rank,
+    # and the images' before the device's, as in correlate_many.
+    check_channels(cfg, np.shape(und_pyramid[0]), "the undeformed images")
+    check_channels(cfg, np.shape(def_pyramid[0]), "the deformed images")
     device = resolve_device(cfg, device, mesh=mesh)
     shard, guess = shard_inputs(mesh, subsets, params0)
     res = correlate_many(cfg, und_pyramid, def_pyramid, [shard], [guess],

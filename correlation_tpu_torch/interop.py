@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from correlation_tpu_torch.config import (
-    BACKENDS,
     DeformationDescription,
     DomainType,
     ErrorMode,
@@ -32,18 +31,6 @@ from correlation_tpu_torch.domains import (
     SubsetBatch,
     _level_extents,
 )
-
-# JAX assembly backends and the port's for each: "xla_sep", the
-# separable tiles, maps to "sep", "xla", the coefficient field, to
-# "field", and the fused kernel ("pallas", "pallas_dma") to "auto", which
-# picks the CUDA kernel or its plain version by the device of the tensors
-# (and the separable tiles above 3 channels, as JAX's "auto" does).
-_JAX_BACKENDS = {"auto": "auto", "pallas": "auto", "pallas_dma": "auto",
-                 "xla_sep": "sep", "xla": "field"}
-# JAX SolverConfig fields the port has no counterpart for: they schedule
-# the straggler compaction of the JAX while loop, which leaves every
-# subset's result unchanged, and the port's host loop has no compaction.
-JAX_ONLY_FIELDS = ("compact_stages", "compact_factor", "compact_min")
 
 
 def subset_batch_from_numpy(xy_levels, mask_levels, center0, extents=None):
@@ -87,13 +74,9 @@ def domain_from_dict(kind, d: dict):
 
 def solver_config_from_dict(d: dict) -> SolverConfig:
     """A SolverConfig from dataclasses.asdict of the JAX SolverConfig
-    (enums as ints, pyramid as a dict).  The JAX-only compaction fields
-    are dropped."""
-    d = {k: v for k, v in d.items() if k not in JAX_ONLY_FIELDS}
-    backend = d.pop("backend", "auto")
-    if backend not in _JAX_BACKENDS and backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
-    backend = _JAX_BACKENDS.get(backend, backend)
+    (enums as ints, pyramid as a dict); a JAX backend name is stored as
+    the port's (config.JAX_BACKENDS)."""
+    d = dict(d)
     pyramid = d.pop("pyramid", {})
     if not isinstance(pyramid, PyramidConfig):
         pyramid = PyramidConfig(**dict(pyramid))
@@ -103,7 +86,6 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
         model=model,
         interpolation=interp,
         pyramid=pyramid,
-        backend=backend,
         **d,
     )
 

@@ -84,16 +84,14 @@ def _assert_reports_match(got_path, ref_path):
 
 @pytest.mark.parametrize("mode", ["rect", "auto-guess", "sep"])
 def test_cli_report_matches_jax(tmp_path, mode):
-    """The 4-frame rectangle run (under "auto", and under JAX's
-    --backend xla_sep against the port's --backend sep) and a seeded
-    pair."""
-    jax_extra = port_extra = []
+    """The 4-frame rectangle run (under "auto", and under one JAX command
+    line, --backend xla_sep --compact-stages 0, given to both CLIs) and a
+    seeded pair."""
     if mode in ("rect", "sep"):
         paths = _write_frames(tmp_path, 4, 0.6, -0.4)
         extra = []
         if mode == "sep":
-            jax_extra = ["--backend", "xla_sep"]
-            port_extra = ["--backend", "sep"]
+            extra = ["--backend", "xla_sep", "--compact-stages", "0"]
     else:
         # The second frame is 11 px away: beyond the 2-level pyramid's
         # reach from a zero guess, seeded per sector.
@@ -102,9 +100,8 @@ def test_cli_report_matches_jax(tmp_path, mode):
         extra = ["--rect", "40", "40", "88", "88", "--auto-guess",
                  "--auto-guess-win", "64"]
     ref, got = str(tmp_path / "jax.csv"), str(tmp_path / "port.csv")
-    assert jax_main(paths + RECT + extra + jax_extra + ["--report", ref]) == 0
-    assert cli.main(paths + RECT + extra + port_extra
-                    + ["--cpu", "--report", got]) == 0
+    assert jax_main(paths + RECT + extra + ["--report", ref]) == 0
+    assert cli.main(paths + RECT + extra + ["--cpu", "--report", got]) == 0
     _assert_reports_match(got, ref)
     if mode == "auto-guess":
         for row in _rows(got):
@@ -143,9 +140,53 @@ def test_without_a_card_the_cli_exits_nonzero(tmp_path, capsys, monkeypatch):
     assert cli.main(paths + RECT + ["--report", report]) == 1
     assert "CUDA device" in capsys.readouterr().err
     assert not os.path.exists(report)
-    with pytest.raises(SystemExit) as stop:
-        cli.main(paths + RECT + ["--backend", "xla"])
-    assert stop.value.code == 2  # not one of the port's backends
+    # A JAX backend name solves on the card too, as the default does.
+    assert cli.main(paths + RECT + ["--backend", "xla", "--report",
+                                    report]) == 1
+    assert "CUDA device" in capsys.readouterr().err
+    assert not os.path.exists(report)
+
+
+def test_jax_backend_names_give_the_port_names_reports(tmp_path):
+    """On the port, each JAX backend name (with --compact-stages, which
+    nothing reads) writes the report of the port's name byte for byte."""
+    from correlation_tpu_torch.config import JAX_BACKENDS
+
+    paths = _write_frames(tmp_path, 4, 0.6, -0.4)
+
+    def report(*extra):
+        out = tmp_path / f"{'_'.join(extra)}.csv"
+        assert cli.main(paths + RECT + ["--cpu", "--report", str(out),
+                                        *extra]) == 0
+        return out.read_bytes()
+
+    ports = {name: report("--backend", name)
+             for name in set(JAX_BACKENDS.values())}
+    for jax_name, port_name in JAX_BACKENDS.items():
+        assert report("--backend", jax_name, "--compact-stages",
+                      "0") == ports[port_name], jax_name
+
+
+def test_backend_device_mismatch_exits_2_before_decoding(tmp_path, capsys,
+                                                         monkeypatch):
+    """--cpu --backend cuda is an argument error: one line on stderr and
+    exit 2, before any image is decoded."""
+    from correlation_tpu_torch import io as tio
+
+    def no_decode(*args, **kwargs):
+        raise AssertionError("an image was decoded")
+
+    paths = _write_frames(tmp_path, 2, 0.0, 0.0)
+    monkeypatch.setattr(tio, "load_image", no_decode)
+    report = str(tmp_path / "out.csv")
+    for extra in ([], ["--auto-guess"]):
+        assert cli.main(paths + RECT + extra + [
+            "--cpu", "--backend", "cuda", "--report", report]) == 2
+        err = capsys.readouterr().err
+        assert err == ("backend 'cuda' solves on a cuda device, not on cpu; "
+                       "backends 'auto', 'sep' and 'field' solve on "
+                       "either\n")
+    assert not os.path.exists(report)
 
 
 def test_plot_dir_writes_jax_file_names(tmp_path):

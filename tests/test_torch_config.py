@@ -14,7 +14,6 @@ import correlation_tpu.config as jcfg
 from correlation_tpu.domains import make_batch as jax_make_batch
 from correlation_tpu_torch import config as tcfg
 from correlation_tpu_torch.interop import (
-    JAX_ONLY_FIELDS,
     chain_seed_from_numpy,
     solver_config_from_dict,
     subset_batch_from_numpy,
@@ -34,9 +33,10 @@ def test_enums_equal(name):
 def test_config_defaults_equal():
     ref = dataclasses.asdict(jcfg.SolverConfig())
     got = dataclasses.asdict(tcfg.SolverConfig())
-    # The port keeps every field but the JAX loop's compaction schedule.
-    assert set(ref) - set(got) == set(JAX_ONLY_FIELDS)
-    assert got == {k: v for k, v in ref.items() if k not in JAX_ONLY_FIELDS}
+    # Every field, the compaction schedule's too, with JAX's default.
+    assert got == ref
+    assert (got["compact_stages"], got["compact_factor"],
+            got["compact_min"]) == (6, 2, 128)
     assert {int(k): v for k, v in tcfg.NUM_PARAMS.items()} == \
         {int(k): v for k, v in jcfg.NUM_PARAMS.items()}
     for p in ((0, 1, 2), (0, 2, 4), (1, 1, 3)):
@@ -57,13 +57,63 @@ def test_solver_config_from_jax_dict():
     d["model"], d["interpolation"] = int(d["model"]), int(d["interpolation"])
     got = solver_config_from_dict(d)
     assert got.backend == "auto"
-    want = {k: v for k, v in dataclasses.asdict(ref).items()
-            if k not in JAX_ONLY_FIELDS}
-    want["backend"] = "auto"
+    want = dict(dataclasses.asdict(ref), backend="auto")
     assert dataclasses.asdict(got) == want
+    # Nothing is dropped: the same arguments construct the same config.
+    assert got == tcfg.SolverConfig(
+        model=tcfg.FittingModel.UVQ, interpolation=tcfg.Interpolation.BILINEAR,
+        pyramid=tcfg.PyramidConfig(0, 1, 3), max_iterations=17,
+        precision=1e-5, lambda_up=7.0, tile_margin=6, backend="pallas",
+        compact_stages=3,
+    )
     assert got.num_params == ref.num_params == 3
     with pytest.raises(ValueError):
         solver_config_from_dict({"backend": "tpu"})
+
+
+@pytest.mark.parametrize("jax_name,port_name",
+                         [("pallas", "auto"), ("pallas_dma", "auto"),
+                          ("xla_sep", "sep"), ("xla", "field")])
+def test_jax_backend_names_construct_the_port_config(jax_name, port_name):
+    """A JAX backend name is stored as the port's, so the two configs are
+    equal and the engine reads the port's name."""
+    assert tcfg.JAX_BACKENDS[jax_name] == port_name
+    got = tcfg.SolverConfig(backend=jax_name)
+    assert got == tcfg.SolverConfig(backend=port_name)
+    assert got.backend == port_name
+    assert dataclasses.replace(got, tile_margin=4).backend == port_name
+    ref = dataclasses.asdict(jcfg.SolverConfig(backend=jax_name))
+    assert dataclasses.asdict(got) == dict(ref, backend=port_name)
+
+
+def test_unknown_backend_names_both_lists():
+    with pytest.raises(ValueError, match="unknown backend 'tpu'") as err:
+        tcfg.SolverConfig(backend="tpu")
+    for name in (*tcfg.BACKENDS, *tcfg.JAX_BACKENDS):
+        assert repr(name) in str(err.value)
+
+
+def test_names_a_jax_user_imports():
+    """The names a JAX user imports from the package and from its ops."""
+    from correlation_tpu_torch import (  # noqa: F401
+        DeformationDescription,
+        ErrorMode,
+        ReferenceImage,
+    )
+    from correlation_tpu_torch.ops import (  # noqa: F401
+        BINOMIAL_1D,
+        InterpField,
+        build_pyramid,
+        lm_delta,
+        precompute_field,
+        sample_field,
+        sample_integer,
+    )
+
+    assert ErrorMode is tcfg.ErrorMode
+    from correlation_tpu.ops import BINOMIAL_1D as JAX_BINOMIAL_1D
+
+    np.testing.assert_array_equal(BINOMIAL_1D, np.asarray(JAX_BINOMIAL_1D))
 
 
 def test_subset_batch_from_jax_arrays():
@@ -138,7 +188,8 @@ def test_import_leaves_jax_out():
         "correlation_tpu_torch.experiments.exp_matmul_overhead, "
         "correlation_tpu_torch.experiments.profile_bench, "
         "correlation_tpu_torch.cli, correlation_tpu_torch.viz, "
-        "correlation_tpu_torch.ops.seed, correlation_tpu_torch.ops.assemble, "
+        "correlation_tpu_torch.ops, correlation_tpu_torch.ops.seed, "
+        "correlation_tpu_torch.ops.assemble, "
         "correlation_tpu_torch.parallel, correlation_tpu_torch.parallel.mesh, "
         "correlation_tpu_torch.parallel.collectives; "
         "bad = [m for m in sys.modules if m == 'PIL' or m.startswith('PIL.')]; "

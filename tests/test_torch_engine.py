@@ -227,8 +227,19 @@ def test_backend_option():
                          backend="cuda"),
             [und], [dfm], batch, np.zeros((1, 2)), device="cpu",
         )
+    # A JAX configuration, as it is, solves as its port backend does.
+    for jax_name, port_name in (("pallas", "auto"), ("xla_sep", "sep"),
+                                ("xla", "field")):
+        got, want = (engine.correlate(
+            SolverConfig(model=FittingModel.UV,
+                         pyramid=PyramidConfig(0, 1, 0), backend=name,
+                         compact_stages=0),
+            [und], [dfm], batch, np.zeros((1, 2)), device="cpu",
+        ) for name in (jax_name, port_name))
+        assert torch.equal(got.params, want.params), jax_name
+        assert torch.equal(got.iterations, want.iterations), jax_name
     with pytest.raises(ValueError):
-        SolverConfig(backend="pallas")
+        SolverConfig(backend="tpu")
 
 
 def _one_subset_problem():
@@ -243,7 +254,7 @@ def _one_subset_problem():
 def test_default_device_is_the_card(monkeypatch, entry, backend):
     """Numpy input and no device: backends "auto" and "cuda" solve on the
     card, so without one they raise and name it; nothing falls back to the
-    CPU."""
+    CPU, and "cuda" refuses the CPU when it is named."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     und, dfm, batch = _one_subset_problem()
     cfg = SolverConfig(model=FittingModel.UV, pyramid=PyramidConfig(0, 1, 0),
@@ -254,21 +265,83 @@ def test_default_device_is_the_card(monkeypatch, entry, backend):
         else:
             engine.correlate_frames(cfg, np.stack([und, dfm]), batch,
                                     np.zeros((1, 2)))
-    assert engine.resolve_device(cfg, "cpu") == torch.device("cpu")
+    if backend == "cuda":
+        with pytest.raises(ValueError, match="'cuda' solves on a cuda"):
+            engine.resolve_device(cfg, "cpu")
+    else:
+        assert engine.resolve_device(cfg, "cpu") == torch.device("cpu")
 
 
 def test_resolve_device_rule(monkeypatch):
     """A named device wins, then the device of a tensor input, then the
-    backend: "torch" -> the CPU, "auto" / "cuda" -> the card."""
+    backend: "torch" -> the CPU, "auto" / "cuda" -> the card.  Backend
+    "cuda" off a CUDA device and "torch" off the CPU raise ValueError,
+    whichever rule chose the device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     auto, plain = SolverConfig(), SolverConfig(backend="torch")
+    kernel = SolverConfig(backend="cuda")
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert engine.resolve_device(auto) == cuda
-    assert engine.resolve_device(SolverConfig(backend="cuda")) == cuda
+    assert engine.resolve_device(kernel) == cuda
     assert engine.resolve_device(plain) == cpu
     assert engine.resolve_device(auto, like=torch.zeros(1)) == cpu
-    assert engine.resolve_device(plain, "cuda:0") == torch.device("cuda:0")
+    assert engine.resolve_device(auto, "cuda:0") == torch.device("cuda:0")
+    assert engine.resolve_device(kernel, "cuda:0") == torch.device("cuda:0")
     assert engine.resolve_device(auto, like=np.zeros(1)) == cuda
+    for cfg, kwargs in ((plain, {"device": "cuda:0"}),
+                        (plain, {"like": torch.zeros(1, device="meta")}),
+                        (kernel, {"device": "cpu"}),
+                        (kernel, {"like": torch.zeros(1)})):
+        with pytest.raises(ValueError, match=f"{cfg.backend!r} solves on"):
+            engine.resolve_device(cfg, **kwargs)
+
+
+@pytest.mark.parametrize("entry", ["correlate", "correlate_many",
+                                   "correlate_frames", "run_sequence",
+                                   "run_sequence_from_files"])
+def test_backend_device_mismatch_raises_before_any_work(monkeypatch,
+                                                         tmp_path, entry):
+    """Backend "cuda" with device="cpu", and "torch" with a CUDA device,
+    raise the ValueError before an image is read, cast or pyramided."""
+    from correlation_tpu_torch import io, sequence
+
+    def no_work(*args, **kwargs):
+        raise AssertionError("work before the backend/device check")
+
+    und, dfm, batch = _one_subset_problem()
+    paths = [str(tmp_path / "f0.png"), str(tmp_path / "f1.png")]
+    for m in (engine, sequence):
+        monkeypatch.setattr(m, "build_pyramid", no_work)
+    monkeypatch.setattr(engine, "_as_f32", no_work)
+    monkeypatch.setattr(io, "load_image", no_work)
+
+    def run(backend, device):
+        cfg = SolverConfig(model=FittingModel.UV,
+                           pyramid=PyramidConfig(0, 1, 0), backend=backend)
+        if entry == "correlate":
+            engine.correlate(cfg, [und], [dfm], batch, np.zeros((1, 2)),
+                             device=device)
+        elif entry == "correlate_many":
+            engine.correlate_many(cfg, [und], [dfm], [batch],
+                                  [np.zeros((1, 2))], device=device)
+        elif entry == "correlate_frames":
+            engine.correlate_frames(cfg, np.stack([und, dfm]), batch,
+                                    np.zeros((1, 2)), device=device)
+        elif entry == "run_sequence":
+            sequence.run_sequence([und, dfm], [_grid(20, 20, 40, 40)],
+                                  sequence.SequenceConfig(solver=cfg),
+                                  device=device)
+        else:
+            sequence.run_sequence_from_files(
+                paths, [_grid(20, 20, 40, 40)],
+                sequence.SequenceConfig(solver=cfg), device=device)
+
+    with pytest.raises(ValueError, match="'cuda' solves on a cuda device, "
+                                         "not on cpu"):
+        run("cuda", "cpu")
+    with pytest.raises(ValueError, match="'torch' solves on a cpu device, "
+                                         "not on cuda"):
+        run("torch", "cuda")
 
 
 @pytest.mark.parametrize(

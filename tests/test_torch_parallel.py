@@ -652,13 +652,16 @@ def test_mesh_of_one_equals_the_unsharded_solve():
 
 def test_resolve_device_follows_the_mesh():
     cpu_mesh = pmesh.make_mesh("cpu")
-    for backend in ("auto", "cuda", "field", "torch"):
+    for backend in ("auto", "field", "sep", "torch"):
         cfg = _solver(backend)
         assert engine.resolve_device(cfg, mesh=cpu_mesh) == torch.device("cpu")
         assert engine.resolve_device(cfg, "cpu", torch.zeros(1),
                                      cpu_mesh) == torch.device("cpu")
     with pytest.raises(ValueError, match="mesh's device"):
         engine.resolve_device(_solver(), "meta", mesh=cpu_mesh)
+    # The CUDA kernel's backend does not solve on a CPU mesh.
+    with pytest.raises(ValueError, match="'cuda' solves on a cuda device"):
+        engine.resolve_device(_solver("cuda"), mesh=cpu_mesh)
     und, dfm, pts = correlate_problem()
     und_pyr, def_pyr = _pyramids(und, dfm)
     batch = make_batch(pts, None, 1)
