@@ -5,8 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one informational line each:
   1. device: the card's name and `nvidia-smi` name / power limit;
-  2. build: compile csrc/fused_assemble.cu with nvcc into build/ and turn
-     TF32 off for float32 matmuls and cuDNN;
+  2. build: compile csrc/*.cu (fused_assemble.cu, lm_step.cu and the
+     experiment kernels; one nvcc a source, in parallel) into one library
+     in build/ and turn TF32 off for float32 matmuls and cuDNN;
   3. kernel vs plain: the CUDA fused assembly against its plain PyTorch
      version on the card, bit for bit, over the model x interpolation x
      channel grid and at the dense-grid problem's level 0/1/2 shapes
@@ -14,17 +15,33 @@ Phases, one informational line each:
      with one subset warped out of the image, at 248x248 and 320x320
      tiles that shared memory cannot hold (the global-tile path, both
      paths, C = 1 and 3), and with 49x49 subsets (the split path: 5 spans,
-     the last ragged; C = 1 and 3);
+     the last ragged; C = 1 and 3); then the LM-step kernel
+     (csrc/lm_step.cu) against its plain version, bit for bit (a NaN as a
+     NaN), on 4096 subsets of every branch (problems.lm_step_problem:
+     NaN and out-of-image rows among them), four models x both modes,
+     through a shuffled list whose last quarter lies past its device
+     length and must stay untouched; and K1 with the list's length on the
+     device at the dense grid's three levels against its plain version on
+     idx[:count], counts 0, 1, 30% and all;
   4. pyramid: the pyramid built on the card equals the CPU pyramid;
   5. slice: correlate_frames on the dense-grid problem (4096 21x21
      subsets, AFFINE/BICUBIC, levels 2-1-0, 64 chained frame pairs) on
      the card, checked for finite parameters, the hard-error fraction, the
      recovered shift (u, v) = (0, 1) and kernel launches at every level
-     (launches and subsets a launch per level); then the first 256 subsets
-     for 2 frames through the plain version on the CPU;
+     (launches and the list's capacity a launch per level: K1's grid
+     covers the list's room, not its length), with the stack, the subsets
+     and the guesses staged on the card first and the chunk enqueued
+     under CUDA's sync debug mode "error" (any host sync raises), the
+     LM-step kernel launched for the initial step and max_iterations + 2
+     iterations at every level of every pair, and no kernel launcher
+     calling a synchronising CUDA function (read from the sources); then
+     the first 256 subsets for 2 frames through the plain version on the
+     CPU;
   6. time: the 64-frame chunk after a warm-up, and one assembly per level
      by the kernel (replayed from a CUDA graph, and called eagerly through
-     its wrapper) and by the plain version;
+     its wrapper) and by the plain version; the LM-step kernel on 4096
+     AFFINE subsets from a CUDA graph, its plain version, and lm_delta
+     alone from a graph (its yardstick);
   7. experiment kernels: the entry points of experiments.exp_gather and
      experiments.exp_matmul_overhead at the JAX scripts' sizes, then each
      kernel against its plain version (the gather bit for bit, the stages
@@ -111,13 +128,15 @@ Phases, one informational line each:
      phase 10 under "auto", which takes the sep path, card == CPU bit for
      bit;
  14. profile: experiments.profile_bench at full size (correlate,
-     prepare_levels, solve_level per level, K1 chained per level,
-     lm_delta, solve_level with the assembly stubbed), every time finite
-     and positive.
+     prepare_levels, solve_level per level with its host issue, K1
+     chained per level, lm_delta, the LM-step kernel, an iteration whose
+     list is empty, solve_level with the assembly stubbed, the busy share
+     of an 8-pair chunk under torch.profiler), every time finite and
+     positive.
 Then a JSON line with the kernel records (K1 at each level of the dense
-grid and of the blob, K2, the five stages): launches on the main path
-(K1: its level's, with the mean subsets a launch and the threads a
-subset),
+grid and of the blob, the LM step, K2, the five stages): launches on the
+main path (K1: its level's, with the list's capacity a launch and the
+threads a subset),
 agreement with the plain version, the kernel's, the plain version's and
 the library call's times, and the kernel's bound, the least time the card
 could take for the same work (bound()); and, last, the JSON line
@@ -198,6 +217,179 @@ def gram_check(got, ref, num_p, what):
     finite = np.isfinite(ref)
     return (float(np.abs(got - ref)[finite].max()),
             bool(np.array_equal(got, ref, equal_nan=True)))
+
+
+def same_bits(torch, a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int32)[~nan],
+                                b.view(torch.int32)[~nan]))
+
+
+def lm_step_cases(torch, dev, v2, level_args):
+    """Phase 3's LM-step checks.  The kernel against its plain version on
+    problems.lm_step_problem's NUM_SUBSETS subsets (every branch, NaN and
+    out-of-image rows), four models x both modes, through a shuffled list
+    of every subset whose last quarter lies past the device length, which
+    must stay untouched; then K1 with the list's length on the device
+    (active_list of a random 30% mask) at each dense-grid level against
+    its plain version on idx[:count], counts 0, 1, the mask's and all.
+    Returns (case names, max |kernel - plain| over finite entries)."""
+    from correlation_tpu_torch.config import FittingModel
+    from correlation_tpu_torch.engine import active_list
+    from correlation_tpu_torch.ops import solve
+    from correlation_tpu_torch.problems import lm_step_problem
+
+    names, worst = [], 0.0
+    listed = 3 * NUM_SUBSETS // 4
+    for model in FittingModel:
+        for init in (False, True):
+            cfg, arrays, out, *rest, img_hw = lm_step_problem(
+                model, NUM_SUBSETS, seed=int(model))
+
+            def t(a):
+                return torch.as_tensor(a, device=dev)
+
+            state = solve.LMState(**{k: t(v) for k, v in arrays.items()})
+            perm = torch.randperm(
+                NUM_SUBSETS,
+                generator=torch.Generator().manual_seed(int(model))).to(dev)
+            count = torch.tensor([listed], dtype=torch.int32, device=dev)
+            args = (t(out)[perm], perm.to(torch.int32), count,
+                    *(t(a) for a in rest), img_hw, init)
+            got = solve.LMState(*(a.clone() for a in state))
+            ref = solve.LMState(*(a.clone() for a in state))
+            solve.lm_step(cfg, got, *args)
+            solve.lm_step_reference(cfg, ref, *args)
+            torch.cuda.synchronize()
+            what = f"lm_step {model.name} {'init' if init else 'step'}"
+            untouched = perm[listed:]
+            for name, a in got._asdict().items():
+                b = ref._asdict()[name]
+                check(same_bits(torch, a, b),
+                      f"{what}: {name} differs from the plain version")
+                check(same_bits(torch, a[untouched],
+                                state._asdict()[name][untouched]),
+                      f"{what}: {name} changed past the list's length")
+                if a.dtype == torch.float32:
+                    fin = torch.isfinite(a) & torch.isfinite(b)
+                    if fin.any():
+                        worst = max(worst, float((a - b)[fin].abs().max()))
+            names.append(f"{what} ({NUM_SUBSETS} subsets, {listed} listed)")
+    gen = torch.Generator().manual_seed(5)
+    for lvl, args in sorted(level_args.items()):
+        mask = (torch.rand(NUM_SUBSETS, generator=gen) < 0.3).to(dev)
+        idx, count = active_list(mask, True)
+        for n in (0, 1, int(count), NUM_SUBSETS):
+            c = torch.tensor([n], dtype=torch.int32, device=dev)
+            got = v2.fused_assemble(*args, idx, c)
+            ref = v2.fused_assemble_reference(*args, idx[:n])
+            torch.cuda.synchronize()
+            check(torch.equal(got[:n], ref),
+                  f"L{lvl}: K1 with a device length of {n} differs from its "
+                  "plain version on idx[:count]")
+        names.append(f"K1 L{lvl} with a device length 0, 1, {int(count)}, "
+                     f"{NUM_SUBSETS}")
+    return names, worst
+
+
+def lm_step_record(torch, dev, launches, max_err):
+    """The LM-step kernel's JSON record: on problems.lm_step_problem's
+    NUM_SUBSETS AFFINE subsets, the whole list, the kernel replayed from a
+    CUDA graph over copies of its inputs and state that the L2 cannot hold
+    together (graph_ms_cold: each step reads them from HBM), its plain
+    version eager, and as the nearest yardstick ops/solve.lm_delta from a
+    CUDA graph (no single PyTorch call computes the step).
+
+    The bound counts the bytes a step of this data moves, each once:
+    for every listed subset its list entry, its 64-float assembly,
+    scaling, and p_cur, p_lg, lambda, chi_lg, iteration and the error code
+    read and written, and the active flag written; the bounding box and
+    center only where the assembly reports an interpolation error (the
+    out-of-image test); the completed-iterations count only where the
+    subset steps; the cached Gram once where it is read (a diverging
+    step) or written (an accepted one), which are never both.  n_points
+    and init_fail are not touched outside the initial step.  A subset
+    that does not step keeps its state, and one that steps stays on the
+    same side (an accepted step makes the next converge on the same
+    assembly), so every replay moves what the first does."""
+    from correlation_tpu_torch.config import FittingModel
+    from correlation_tpu_torch.ops import solve
+    from correlation_tpu_torch.problems import lm_step_problem
+    from correlation_tpu_torch.utils.profiling import (
+        cuda_time_ms,
+        graph_ms,
+        graph_ms_cold,
+    )
+
+    cfg, arrays, out, *rest, img_hw = lm_step_problem(FittingModel.AFFINE,
+                                                      NUM_SUBSETS)
+    state = solve.LMState(**{k: torch.as_tensor(v, device=dev)
+                             for k, v in arrays.items()})
+    out, scaling, n_points, bbox, center = (torch.as_tensor(a, device=dev)
+                                            for a in (out, *rest))
+    idx = torch.arange(NUM_SUBSETS, dtype=torch.int32, device=dev)
+    args = (out, idx, None, scaling, n_points, bbox, center, img_hw)
+    num_p = cfg.num_params
+
+    after = solve.LMState(*(x.clone() for x in state))
+    solve.lm_step_reference(cfg, after, *args)
+    err_now = out[:, num_p + 1, num_p + 1] > 0
+    diverging = ~(out[:, num_p, num_p] * scaling <= state.chi_lg)
+    stepped = after.iteration != state.iteration
+    n = NUM_SUBSETS
+    every = (idx.element_size() + 64 * out.element_size()
+             + scaling.element_size()
+             + 2 * sum(x[0].numel() * x.element_size()
+                       for x in (state.p_cur, state.p_lg, state.lam,
+                                 state.chi_lg, state.iteration, state.error))
+             + state.active.element_size())
+    moved = (n * every
+             + int(err_now.sum()) * (bbox[0].numel() * bbox.element_size()
+                                     + center[0].numel()
+                                     * center.element_size())
+             + int(stepped.sum()) * state.reached.element_size()
+             + int((diverging | stepped).sum())
+             * state.ab[0].numel() * state.ab.element_size())
+    bound_ms, bound_by = bound(moved)
+
+    def step(*c):
+        solve.lm_step(cfg, solve.LMState(*c[:10]), c[10], c[11], None,
+                      *c[12:], img_hw)
+
+    ms = graph_ms_cold(step, (*state, out, idx, scaling, n_points, bbox,
+                              center))
+    plain_ms = cuda_time_ms(lambda: solve.lm_step_reference(cfg, state, *args),
+                            5)
+    a = out[:, :num_p, :num_p]
+    b = out[:, :num_p, num_p].contiguous()
+    yard_ms = graph_ms(lambda: solve.lm_delta(a, b, state.lam, scaling), 20)
+    print(f"lm_step: {n} AFFINE subsets ({int(stepped.sum())} step, "
+          f"{int(diverging.sum())} diverge, {int(err_now.sum())} with an "
+          f"interpolation error), kernel {ms:.4f} ms (graph, from HBM), "
+          f"plain {plain_ms:.4f} ms (eager), lm_delta {yard_ms:.4f} ms "
+          f"(graph); bound {moved / 1e6:.3f} MB -> {bound_ms:.5f} ms "
+          f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+    return {
+        "name": "lm_step",
+        "route": "cuda",
+        "source": "correlation_tpu_torch/csrc/lm_step.cu",
+        "replaces": "correlation_tpu/engine.py:343 (_make_body: XLA in JAX, "
+                    "not a Pallas kernel)",
+        "launches": launches,  # phase 5's
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_call": None,
+        "library_ms": None,
+        "yardstick": "ops/solve.lm_delta alone, from a CUDA graph",
+        "yardstick_ms": yard_ms,
+    }
 
 
 def tile_memory(v2, p_len, tile_h, tile_w, channels):
@@ -821,7 +1013,7 @@ def domains_phase(torch, dev, smi, v2):
             "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
             "replaces": "correlation_tpu/ops/assemble_v2.py:964",
             "launches": launches,  # the blob sequence's, at this shape
-            "subsets_per_launch": subsets / launches,
+            "capacity_per_launch": subsets / launches,
             "threads_per_subset": v2.subset_threads(p_len),
             "spans": v2.subset_chunks(p_len),
             "max_abs_err": float((got - ref).abs().max()),
@@ -1539,7 +1731,7 @@ def mesh_phase(torch, smi, chunk_s):
           f"workers' wall {one_wall:.1f} s")
     print(f"mesh (b) gloo, two ranks sharing cuda:0 ({smi}): the chunk == "
           f"phase 5 bit for bit on both ranks; K1 launches rank 0 "
-          f"{r0['launches']}, rank 1 {two[1]['launches']} (subsets a launch "
+          f"{r0['launches']}, rank 1 {two[1]['launches']} (list capacity a launch "
           f"{ {k: round(v, 1) for k, v in r0['subsets_a_launch'].items()} }); "
           f"chunk {r0['chunk_first_s']:.3f} s first, {r0['chunk_s']:.4f} s = "
           f"{solves / r0['chunk_s']:.1f} solves/s warm, "
@@ -1582,6 +1774,7 @@ def main() -> int:
     from correlation_tpu_torch.engine import correlate_frames
     from correlation_tpu_torch.ops import _build
     from correlation_tpu_torch.ops import assemble_v2 as v2
+    from correlation_tpu_torch.ops import solve as lm
     from correlation_tpu_torch.ops.pyramid import build_pyramid
     from correlation_tpu_torch.problems import (
         assembly_levels,
@@ -1649,6 +1842,10 @@ def main() -> int:
     print(f"kernel vs plain: {len(names)} cases agree ({', '.join(names)}); "
           f"max |kernel - plain| {max_err:.4e}; bit-identical in {identical} "
           f"of {len(names)}")
+    step_names, step_err = lm_step_cases(torch, dev, v2, level_args)
+    print(f"LM step and K1's device length vs plain: {len(step_names)} cases "
+          f"bit-identical, a NaN as a NaN ({', '.join(step_names)}); max "
+          f"|kernel - plain| {step_err:.4e}")
 
     # ---- 4. pyramid --------------------------------------------------------
     cpu_pyr = build_pyramid(pair.cpu(), cfg.pyramid.stop)
@@ -1658,15 +1855,35 @@ def main() -> int:
           f"({' '.join(str(tuple(a.shape[1:3])) for a in pyr)})")
 
     # ---- 5. the slice ------------------------------------------------------
+    synced = _build.synchronising_calls()
+    check(not synced, f"kernel launchers synchronise: {synced}")
     stack = np.stack([und] + [dfm] * FRAMES)[..., None].astype(np.uint8)
     stack_dev = torch.from_numpy(stack).to(dev)
+    # Staged on the card, so that the chunk's first solve op is its first
+    # operation; from there to the packed result nothing may wait for the
+    # card.
+    batch_dev = batch.to_device(dev)
+    params0_dev = torch.as_tensor(params0, device=dev)
     torch.cuda.synchronize()
     v2.reset_launches()
+    lm.reset_launches()
     t0 = time.perf_counter()
-    out = correlate_frames(cfg, stack_dev, batch, params0, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = correlate_frames(cfg, stack_dev, batch_dev, params0_dev,
+                               device=dev)
+        issue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = v2.LAUNCHES
+    step_launches = lm.LAUNCHES
+    levels_n = len(cfg.pyramid.levels_coarse_to_fine())
+    check(step_launches == FRAMES * levels_n * (cfg.max_iterations + 3),
+          f"the LM-step kernel launched {step_launches} times, not the "
+          f"initial step and {cfg.max_iterations + 2} iterations at every "
+          "level of every pair")
     # [launches, subsets assembled] of each level's shape
     by_level = {lvl: list(v2.LAUNCHES_BY_SHAPE.get(
         (a[7].shape[2], a[2], a[3]), [0, 0])) for lvl, a in level_args.items()}
@@ -1703,10 +1920,12 @@ def main() -> int:
                 for k in ("params", "guess", "chi", "iterations", "error",
                           "packed", "center0", "n_points0")})
     print(f"slice: correlate_frames {NUM_SUBSETS} subsets x {FRAMES} frames "
-          f"in {first_s:.3f} s (first run), {launches} kernel launches ("
-          + ", ".join(f"L{lvl} {k}, {m / k:.1f} subsets a launch"
+          f"in {first_s:.3f} s (first run; enqueued in {issue_s:.3f} s under "
+          f"sync debug mode \"error\": no host sync), {launches} K1 launches ("
+          + ", ".join(f"L{lvl} {k}, list capacity {m / k:.1f} a launch"
                       for lvl, (k, m) in sorted(by_level.items()))
-          + "); "
+          + f"), {step_launches} LM-step launches; launchers free of "
+          f"{', '.join(_build.SYNC_CALLS[:3])}; "
           f"hard-error fraction {hard}; median (u, v) = ({med_u:.5f}, "
           f"{med_v:.5f}); card vs CPU plain ({CPU_SUBSETS} subsets x 2 "
           f"frames): max |dp| {p_diff:.3e}, {mismatch} iteration/error "
@@ -1749,7 +1968,8 @@ def main() -> int:
             "source": "correlation_tpu_torch/csrc/fused_assemble.cu",
             "replaces": "correlation_tpu/ops/assemble_v2.py:964",
             "launches": k_launches,  # this level's, on the main path
-            "subsets_per_launch": k_subsets / k_launches,
+            # The list's capacity a launch (K1's grid), not its length.
+            "capacity_per_launch": k_subsets / k_launches,
             "threads_per_subset": v2.subset_threads(p_len),
             "max_abs_err": max_err,
             "ms": kernel_ms,
@@ -1762,6 +1982,8 @@ def main() -> int:
         print(f"bound L{lvl}: {moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP "
               f"-> {bound_ms:.4f} ms ({bound_by}), kernel at "
               f"{bound_ms / kernel_ms:.1%} of it")
+
+    kernels.append(lm_step_record(torch, dev, step_launches, step_err))
 
     # ---- 7. experiment kernels ----------------------------------------------
     kernels += experiments_phase(torch, dev, smi)

@@ -132,9 +132,12 @@ class SolverConfig:
     tile_margin: int = 8
     # The JAX package's straggler-compaction schedule (its defaults; 0
     # stages turns it off there), kept so that a JAX configuration
-    # constructs as it is.  Compaction leaves every subset's result
-    # unchanged, and the port's host loop solves only the still-active
-    # subsets at every iteration, so nothing in the port reads these.
+    # constructs as it is.  Compaction exists because a TPU needs static
+    # shapes; it leaves every subset's result unchanged.  The port's LM
+    # loop lists the still-active subsets on the device at every
+    # iteration, and its kernels' threads past the list's length exit at
+    # once, which does the cascade's job, so nothing in the port reads
+    # these.
     compact_stages: int = 6
     compact_factor: int = 2
     compact_min: int = 128

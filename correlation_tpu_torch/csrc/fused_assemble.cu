@@ -507,6 +507,11 @@ struct Args {
   const float* params;
   const float* bbox;
   const int* idx;
+  // The list's length on the device (at most n), or null for n.  The grid
+  // covers n list positions; a block or lane group past the length
+  // returns at once, so an LM loop can size the launch to the list's
+  // capacity and leave the length on the device.
+  const int* count;
   int n, num_subsets, tile_h, tile_w;
   bool stage_rows, stage_tile, vec;
   int groups;  // warp path: lane groups of a warp that hold a subset
@@ -516,6 +521,11 @@ struct Args {
   float* partial;
   float* out;
 };
+
+// The list's length: *count where the caller keeps it on the device.
+__device__ __forceinline__ int list_len(const int* count, int n) {
+  return count ? min(*count, n) : n;
+}
 
 // Pixels a block stages the rows of: the subset's, or a span's.
 __host__ __device__ inline int row_len(const Args& a) {
@@ -576,9 +586,10 @@ __global__ void __launch_bounds__(32 * kWarpSubsets)
   const int g = lane / kWarpLanes, l = lane % kWarpLanes;
   const int region = w * a.groups + g;
   const int first = (blockIdx.x * (blockDim.x >> 5) + w) * a.groups;
-  if (first >= a.n) return;  // no block barrier below
-  const bool active = g < a.groups && first + g < a.n;
-  const int slot = active ? first + g : a.n - 1;
+  const int n = list_len(a.count, a.n);
+  if (first >= n) return;  // no block barrier below
+  const bool active = g < a.groups && first + g < n;
+  const int slot = active ? first + g : n - 1;
   float* rows = smem + (size_t)(active ? region : 0) * subset_floats(a, C);
   float* tile = rows + rows_floats(a.p_len, C, a.stage_rows);
 
@@ -624,6 +635,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   __shared__ float s_red[kWarps][NPROD];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int slot = blockIdx.x;
+  if (slot >= list_len(a.count, a.n)) return;  // the whole block
   float* tile = smem + rows_floats(a.p_len, C, a.stage_rows);
 
   // The rows need only the index: issue them before the origin's loads.
@@ -675,6 +687,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int slot = blockIdx.x / a.chunks;
   const int span = blockIdx.x - slot * a.chunks;
+  if (slot >= list_len(a.count, a.n)) return;  // the whole block
   const int start = span * a.chunk;
   const int len = min(a.chunk, a.p_len - start);
 
@@ -725,6 +738,7 @@ constexpr int kSumSpans = 32;
 template <int MODEL>
 __global__ void __launch_bounds__(kSumThreads)
     fused_assemble_span_sum(const float* __restrict__ partial, int chunks,
+                            const int* __restrict__ count, int n,
                             float* __restrict__ out) {
   constexpr int R = num_params(MODEL) + 2;
   constexpr int NPROD = R * (R + 1) / 2;
@@ -732,6 +746,7 @@ __global__ void __launch_bounds__(kSumThreads)
   __shared__ float s_part[kSumSpans * NPROD];
   __shared__ float s_sum[NPROD];
   const int t = threadIdx.x, slot = blockIdx.x;
+  if (slot >= list_len(count, n)) return;  // the whole block
   const float* p = partial + (size_t)slot * chunks * NPROD;
   float v = 0.f;
   for (int first = 0; first < chunks; first += kSumSpans) {
@@ -810,7 +825,7 @@ cudaError_t launch_split(Args a, cudaStream_t stream) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   fused_assemble_span_sum<MODEL><<<a.n, kSumThreads, 0, stream>>>(
-      a.partial, a.chunks, a.out);
+      a.partial, a.chunks, a.count, a.n, a.out);
   return cudaGetLastError();
 }
 
@@ -859,7 +874,10 @@ cudaError_t dispatch_i(int interp, int c, int threads, const Args& a,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).  `threads` picks
+// Returns the cudaError_t of the launch (0 on success).  `count` is a
+// device pointer to the length of the list `idx` (at most n), or null for
+// n; the grid covers n positions, and those past the length write
+// nothing.  `threads` picks
 // the path: kWarpLanes for the warp path, kBlockThreads for the block
 // path (anything else is cudaErrorInvalidValue).  `chunk` is the pixels a
 // block sums: 0 for the split rule (kChunkMin, kChunkPixels), else a
@@ -871,8 +889,8 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
                           int chunk, const float* img, int hp, int wp,
                           int img_h, int img_w, const float* pix, int p_len,
                           const float* center, const float* params,
-                          const float* bbox, const int* idx, int n,
-                          int num_subsets, int tile_h, int tile_w,
+                          const float* bbox, const int* idx,
+                          const int* count, int n, int num_subsets, int tile_h, int tile_w,
                           float* work, long long work_floats, float* out,
                           void* stream_ptr) {
   if (n <= 0) return 0;
@@ -889,7 +907,7 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Args a{img,    hp,     wp,     img_h,  img_w, pix,
-               p_len,  center, params, bbox,   idx,   n,
+               p_len,  center, params, bbox,   idx,   count, n,
                num_subsets, tile_h, tile_w, false, false, false,
                1,      chunk,  (int)chunks, work, out};
   switch (model) {

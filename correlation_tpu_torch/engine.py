@@ -28,16 +28,23 @@ tiled assembly for up to 3 channels and the separable one above, as JAX's
 "auto" leaves its fused kernel for xla_sep.  All return the same
 [n, 8, 8] Gram, so the LM loop is one.
 
-Host loop instead of a device while loop.  JAX runs the LM iterations in a
-lax.while_loop and shrinks the batch with a compaction cascade.  Here each
-iteration takes the index list of the still-active subsets
-(torch.nonzero, the one host sync per iteration) and works on exactly
-those: the assembly kernel reads its subsets through that list, so nothing
-is gathered for it, and the LM update touches only the listed rows.  A
-subset's trajectory depends on its own state alone, so this is the same
-arithmetic as the JAX loop (whose compaction is tested bit-identical to
-the monolithic loop).  Capturing fixed blocks of iterations in CUDA graphs
-is later work.
+The LM loop stays on the device.  JAX runs the LM iterations in a
+lax.while_loop, whose stop test never leaves the device, and shrinks the
+batch with a compaction cascade.  Here each iteration builds the list of
+the still-active subsets on the device (active_list: a stable sort of the
+active flags and their sum, no host read), the fused assembly kernel
+reads its subsets through the list and its length from the device, and
+the LM-step kernel (ops/solve.lm_step) updates exactly the listed rows;
+the positions past the list's length exit at once, which does the
+cascade's job.  So on the card a level enqueues its initial step and the
+JAX loop's step bound of max_iterations + 2 iterations without one host
+sync, and a chained chunk of frame pairs (correlate_frames) enqueues whole,
+from the staged stack to the packed result.  A subset's trajectory
+depends on its own state alone, so this is the same arithmetic as the JAX
+loop (whose compaction is tested bit-identical to the monolithic loop).
+The separable and field assemblies, plain torch over the list, cannot
+exit early: they take a host list (torch.nonzero, one sync an iteration)
+and stop at the first empty one, through the same LM step.
 
 Subset sharding (mesh=, parallel/mesh.py).  correlate and
 correlate_frames take a mesh of processes, one a card: every rank gets
@@ -57,7 +64,7 @@ import numpy as np
 import torch
 
 from correlation_tpu_torch.config import ErrorCode, SolverConfig
-from correlation_tpu_torch.models.warp import translate_params, warp_points
+from correlation_tpu_torch.models.warp import translate_params
 from correlation_tpu_torch.ops import assemble_v2 as v2
 from correlation_tpu_torch.ops.assemble import field_assemble, sep_assemble
 from correlation_tpu_torch.ops.interp import (
@@ -66,16 +73,13 @@ from correlation_tpu_torch.ops.interp import (
     sample_integer,
 )
 from correlation_tpu_torch.ops.pyramid import build_pyramid
-from correlation_tpu_torch.ops.solve import lm_delta
+from correlation_tpu_torch.ops.solve import LMState, lm_step
 from correlation_tpu_torch.parallel.mesh import (
     Mesh,
     gather_rows,
     shard_inputs,
     shard_rows,
 )
-
-_FLT_MAX = float(np.finfo(np.float32).max)
-
 
 class LevelArrays(NamedTuple):
     """Per-pyramid-level solver inputs for a subset batch."""
@@ -119,57 +123,63 @@ class CorrelationResult(NamedTuple):
 
 def _make_assemble(cfg: SolverConfig, level: LevelArrays,
                    static: LevelStatic | None):
-    """assemble(params [S, NP], idx int32 [n]) -> [n, 8, 8]: the field
-    assembly where the level carries a field, the separable one where the
-    statics say `sep`, else the fused one."""
+    """(assemble, device_list): assemble(params [S, NP], idx int32 [n],
+    count) -> [n, 8, 8], the field assembly where the level carries a
+    field, the separable one where the statics say `sep`, else the fused
+    one; device_list is whether the assembly reads the list's length from
+    the device (`count`), which only the fused kernel does."""
     if level.def_field is not None:
-        def assemble(params, idx):
+        def assemble(params, idx, count):
             return field_assemble(cfg.model, cfg.interpolation,
                                   level.def_field, level.pix, level.center,
                                   params, idx)
 
-        return assemble
+        return assemble, False
     if static.sep:
-        def assemble(params, idx):
+        def assemble(params, idx, count):
             return sep_assemble(cfg.model, cfg.interpolation, static.tile_h,
                                 static.tile_w, static.img_h, static.img_w,
                                 level.def_img, level.pix, level.center,
                                 params, idx)
 
-        return assemble
+        return assemble, False
     # resolve_device has checked this for every entry point; solve_level
     # and correlate_prepared are public and can be called without it.
     _check_backend_device(cfg, level.def_img.device)
 
-    def assemble(params, idx):
+    def assemble(params, idx, count):
         return v2.fused_assemble(
             cfg.model, cfg.interpolation, static.tile_h, static.tile_w,
             static.img_h, static.img_w, level.def_img, level.pix,
-            level.center, params, level.bbox, idx,
+            level.center, params, level.bbox, idx, count,
         )
 
-    return assemble
+    return assemble, True
 
 
-def _oob_code(cfg: SolverConfig, level: LevelArrays, params, rows):
-    """MODEL_OUT_OF_IMAGE when a warped bounding-box corner leaves the
-    image, else INTERPOLATION_OUT_OF_IMAGE, for the subsets `rows`."""
-    img_h, img_w = level.img_hw
-    corners = warp_points(cfg.model, params, level.bbox[rows], level.center[rows])
-    x, y = corners[..., 0], corners[..., 1]
-    out = (
-        ~torch.isfinite(x) | ~torch.isfinite(y)
-        | (x < 0.0) | (x > img_w - 1.0) | (y < 0.0) | (y > img_h - 1.0)
-    )
-    return torch.where(
-        out.any(dim=1),
-        int(ErrorCode.MODEL_OUT_OF_IMAGE),
-        int(ErrorCode.INTERPOLATION_OUT_OF_IMAGE),
-    ).to(torch.int32)
+def active_list(mask: torch.Tensor, on_device: bool):
+    """The subsets where `mask` holds, as (idx int32, count).
+
+    on_device: idx has room for every subset, the listed ones first in
+    index order (a stable sort of the mask), and count is their number as
+    an int32 [1] tensor on mask's device: no operation reads it on the
+    host, so nothing waits for the device.  Else idx lists exactly those
+    subsets (torch.nonzero, which waits for the device) and count is None.
+    """
+    if on_device:
+        idx = torch.argsort(mask.view(torch.uint8), descending=True,
+                            stable=True).to(torch.int32)
+        return idx, mask.sum(dtype=torch.int32).reshape(1)
+    return torch.nonzero(mask).flatten().to(torch.int32), None
 
 
-def _code(code: ErrorCode, like):
-    return torch.full_like(like, int(code), dtype=torch.int32)
+def _empty_list(idx: torch.Tensor, count: torch.Tensor | None) -> bool:
+    """Whether a list is known to be empty without waiting for the card:
+    a host list's length, a device list's on the CPU.  A device list on
+    the card never is: its iteration runs, and its launches exit."""
+    if count is None:
+        return idx.numel() == 0
+    return count.device.type == "cpu" and int(count) == 0
 
 
 def solve_level(
@@ -185,114 +195,40 @@ def solve_level(
     frozen by earlier failures, left untouched (their rows of the result
     are not meaningful and are not read by correlate_prepared); static:
     the level's tile dims (the tiled and separable assemblies only).
+
+    Each LM iteration is: the list of the still-active subsets
+    (active_list), their assembly, and ops/solve.lm_step on them, as the
+    initial step is on the subsets not skipped.  On the fused assembly the
+    list stays on the device, so on the card the level's initial step and
+    max_iterations + 2 iterations (the JAX loop's step bound) enqueue
+    without one host read, an iteration past the last active subset
+    costing launches that exit at once; on the CPU the loop stops at the
+    first empty list.  The separable and field assemblies, plain torch
+    over the list, take a host list instead (one sync an iteration) and
+    stop at the first empty one.  The results are the same.
     """
-    s, num_p = params0.shape
-    dev = params0.device
-    f32 = torch.float32
-    assemble = _make_assemble(cfg, level, static)
+    assemble, device_list = _make_assemble(cfg, level, static)
+    n_points = level.n_points.contiguous()
+    n_ok = n_points > 0
+    scaling = torch.where(n_ok, 1.0 / n_points.clamp(min=1.0), 0.0)
+    state = LMState.start(cfg, params0)
+    bbox, center = level.bbox.contiguous(), level.center.contiguous()
 
-    n_ok = level.n_points > 0
-    scaling = torch.where(n_ok, 1.0 / level.n_points.clamp(min=1.0), 0.0)
+    def step(mask, init):
+        idx, count = active_list(mask, device_list)
+        if _empty_list(idx, count):
+            return False
+        out = assemble(state.p_cur, idx, count)
+        lm_step(cfg, state, out, idx, count, scaling, n_points, bbox, center,
+                level.img_hw, init)
+        return True
 
-    p_cur = params0.clone()
-    p_lg = params0.clone()
-    lam = torch.full((s,), cfg.lambda_init, dtype=f32, device=dev)
-    chi_lg = torch.zeros(s, dtype=f32, device=dev)
-    iteration = torch.ones(s, dtype=torch.int32, device=dev)
-    reached = torch.zeros(s, dtype=torch.int32, device=dev)
-    error = torch.zeros(s, dtype=torch.int32, device=dev)
-    active = torch.zeros(s, dtype=torch.bool, device=dev)
-    init_fail = torch.zeros(s, dtype=torch.bool, device=dev)
-    ab = torch.zeros((s, 8, 8), dtype=f32, device=dev)
-
-    # ---- initial assembly at the initial guess ---------------------------
-    rows = torch.nonzero(~skip).flatten()
-    if rows.numel():
-        out0 = assemble(params0, rows.to(torch.int32))
-        sc = scaling[rows]
-        p0 = params0[rows]
-        chi0 = out0[:, num_p, num_p] * sc
-        interp_err = out0[:, num_p + 1, num_p + 1] > 0.0
-        dp0 = lm_delta(out0[:, :num_p, :num_p], out0[:, :num_p, num_p],
-                       lam[rows], sc)
-        nok = n_ok[rows]
-        solver0 = ~interp_err & nok & ~torch.isfinite(dp0).all(dim=-1)
-        fail = interp_err | ~nok | solver0
-        init_error = torch.where(
-            interp_err,
-            _oob_code(cfg, level, p0, rows),
-            torch.where(
-                ~nok,
-                _code(ErrorCode.BAD_DOMAIN, rows),
-                torch.where(solver0, _code(ErrorCode.SOLVER, rows),
-                            _code(ErrorCode.NONE, rows)),
-            ),
-        )
-        p_cur[rows] = torch.where(fail[:, None], p0, p0 + dp0)
-        chi_lg[rows] = torch.where(fail, _FLT_MAX, chi0)
-        error[rows] = init_error
-        active[rows] = ~fail
-        init_fail[rows] = fail
-        ab[rows] = out0
-
-    # ---- LM iterations over the still-active subsets ---------------------
-    prec = cfg.precision
+    step(~skip, True)  # the initial assembly at the initial guess
     for _ in range(cfg.max_iterations + 2):  # the JAX loop's step bound
-        rows = torch.nonzero(active).flatten()  # the per-iteration sync
-        if rows.numel() == 0:
+        if not step(state.active, False):
             break
-        out = assemble(p_cur, rows.to(torch.int32))
-        sc = scaling[rows]
-        q = p_cur[rows]
-        plg = p_lg[rows]
-        lam_c = lam[rows]
-        lgc = chi_lg[rows]
-        it = iteration[rows]
-
-        chi = out[:, num_p, num_p] * sc
-        err_now = out[:, num_p + 1, num_p + 1] > 0.0
-        delta_chi = torch.abs((lgc - chi) / (torch.maximum(lgc, chi) + prec))
-        converging = chi <= lgc
-        lam_next = torch.where(
-            converging,
-            torch.clamp(lam_c * cfg.lambda_down, min=cfg.lambda_min),
-            torch.clamp(lam_c * cfg.lambda_up, max=cfg.lambda_max),
-        )
-        ab_old = ab[rows]
-        ab_sel = torch.where(converging[:, None, None], out, ab_old)
-        dp = lm_delta(ab_sel[:, :num_p, :num_p], ab_sel[:, :num_p, num_p],
-                      lam_next, sc)
-        p_new = torch.where(converging[:, None], q, plg) + dp
-        solver_now = ~err_now & ~torch.isfinite(dp).all(dim=-1)
-        do_step = ~(err_now | solver_now)
-        converged = delta_chi < prec
-        next_iter = it + 1
-        exhausted = (next_iter > cfg.max_iterations) | (lam_next >= cfg.lambda_max)
-        accept = do_step & converging
-
-        p_cur[rows] = torch.where(do_step[:, None], p_new, q)
-        p_lg[rows] = torch.where(accept[:, None], q, plg)
-        ab[rows] = torch.where(accept[:, None, None], out, ab_old)
-        chi_lg[rows] = torch.where(accept, chi, lgc)
-        lam[rows] = torch.where(do_step, lam_next, lam_c)
-        iteration[rows] = torch.where(do_step, next_iter, it)
-        reached[rows] = torch.where(do_step, it, reached[rows])
-        active[rows] = do_step & ~(converged | exhausted)
-        error[rows] = torch.where(
-            err_now,
-            _oob_code(cfg, level, q, rows),
-            torch.where(
-                solver_now,
-                _code(ErrorCode.SOLVER, rows),
-                torch.where(
-                    do_step & exhausted & ~converged,
-                    _code(ErrorCode.MAX_ITERS_REACHED, rows),
-                    error[rows],
-                ),
-            ),
-        )
-
-    return LevelResult(p_cur, chi_lg, reached, error, init_fail)
+    return LevelResult(state.p_cur, state.chi_lg, state.reached,
+                       state.error, state.init_fail)
 
 
 def compute_level_statics(

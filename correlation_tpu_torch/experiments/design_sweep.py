@@ -179,8 +179,10 @@ def k1_design(lib, what: str, threads: int | None,
         launch = _launcher(lib, "fused_assemble_first_launch",
                            [i32] * 3 + body)
     else:
+        # The shipped launcher takes the list's device length after idx.
         launch = _launcher(lib, "fused_assemble_launch",
-                           [i32] * 5 + body + [vp, ctypes.c_longlong])
+                           [i32] * 5 + body[:11] + [vp] + body[11:]
+                           + [vp, ctypes.c_longlong])
 
     def assemble(model, interp, th, tw, img_h, img_w, img, pix, center,
                  params, bbox):
@@ -197,7 +199,8 @@ def k1_design(lib, what: str, threads: int | None,
         work = v2.span_workspace(n, params.shape[1], -(-p_len // span),
                                  img.device)
         return _run(launch, what, out, int(model), int(interp), c, threads,
-                    span, *args, None if work is None else work.data_ptr(),
+                    span, *args[:11], None, *args[11:],
+                    None if work is None else work.data_ptr(),
                     0 if work is None else work.numel())
     return assemble
 

@@ -5,16 +5,28 @@ Port of experiments/profile_bench.py.  At the bench's shapes
 row, 4096 21x21 subsets, AFFINE / BICUBIC, pyramid levels 2-1-0) it times
   - correlate on one pair (mean of 5 after a warm call),
   - prepare_levels (the per-pair, iteration-invariant work),
-  - solve_level per pyramid level, with the mean iterations reached,
+  - solve_level per pyramid level, with the mean iterations reached: its
+    wall (host issue and the card's work, to the last kernel's end) and
+    the host's issue alone (the call returns before the card is done,
+    since the LM loop reads nothing back), each also per LM iteration
+    (the initial step and max_iterations + 2 iterations a level),
   - the fused assembly (K1) per level, 20 launches chained through their
     parameters (each adds 1e-9 b to them), replayed from a CUDA graph,
   - ops/solve.lm_delta alone, 50 calls chained the same way (from a CUDA
-    graph, and issued eagerly as the LM loop issues it),
+    graph, and issued eagerly),
+  - ops/solve.lm_step, the LM-step kernel, on 4096 AFFINE subsets of
+    problems.lm_step_problem (from a CUDA graph of 50, and issued
+    eagerly), beside lm_delta,
+  - an LM iteration whose list is empty (the list, K1 and the LM step at
+    level 0, every launch exiting at once): device time from a CUDA graph
+    of 20, and the host's issue a call,
   - solve_level at level 0 with the assembly replaced by a stub that
     returns a fixed, well-conditioned system (identity A, constant b, a
     chi that falls slowly, so that every subset runs max_iterations
-    steps): the host loop's floor, an LM iteration over all 4096 subsets
-    without the assembly.
+    steps): the loop without the assembly,
+  - the device's busy share of an 8-pair chunk (correlate_frames):
+    torch.profiler's device time of every kernel and copy over the
+    chunk's wall.
 The stub is installed here alone, over assemble_v2.fused_assemble, and
 removed before the function returns.  Eager calls are timed between two
 CUDA events after a warm call (utils/profiling.cuda_time_ms): the
@@ -29,6 +41,8 @@ is no CPU fallback: without a CUDA device it raises.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -45,7 +59,7 @@ def _stub_assemble(calls: list):
     `calls`."""
 
     def stub(model, interp, tile_h, tile_w, img_h, img_w, img, pix, center,
-             params, bbox, idx=None):
+             params, bbox, idx=None, count=None):
         p = params if idx is None else params[idx.long()]
         n, num_p = p.shape
         out = torch.zeros((n, 8, 8), dtype=torch.float32, device=p.device)
@@ -65,16 +79,22 @@ def main() -> dict[str, float]:
         raise RuntimeError("profile_bench runs on a CUDA device; none is "
                            "available")
     from correlation_tpu_torch.engine import (
+        active_list,
         compute_level_statics,
         correlate,
+        correlate_frames,
         prepare_levels,
         solve_level,
     )
     from correlation_tpu_torch.models.warp import translate_params
     from correlation_tpu_torch.ops import assemble_v2 as v2
     from correlation_tpu_torch.ops.pyramid import build_pyramid
+    from correlation_tpu_torch.ops import solve as lm
     from correlation_tpu_torch.ops.solve import lm_delta
-    from correlation_tpu_torch.problems import dense_grid_problem
+    from correlation_tpu_torch.problems import (
+        dense_grid_problem,
+        lm_step_problem,
+    )
     from correlation_tpu_torch.utils.profiling import (
         card_name_and_power,
         cuda_time_ms,
@@ -117,14 +137,18 @@ def main() -> dict[str, float]:
         def solve(lvl=lvl, p_l=p_l):
             return solve_level(cfg, levels[lvl], p_l, skip, statics[lvl])
 
-        times[f"solve_level_L{lvl}"] = cuda_time_ms(solve, 5)
-        launches = v2.LAUNCHES
+        wall = times[f"solve_level_L{lvl}"] = cuda_time_ms(solve, 5)
+        torch.cuda.synchronize()
+        launches = lm.LAUNCHES
+        t0 = time.perf_counter()
         res = solve()
-        loops = v2.LAUNCHES - launches - 1  # less the initial assembly
-        print(f"solve_level L{lvl}:       {times[f'solve_level_L{lvl}']:9.3f} "
-              f"ms  (iters reached: {res.reached.float().mean():.2f}; "
-              f"{loops} loop iterations, "
-              f"{times[f'solve_level_L{lvl}'] / max(loops, 1):.3f} ms each)")
+        issue = times[f"issue_L{lvl}"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        loops = lm.LAUNCHES - launches  # the initial step and the loop's
+        print(f"solve_level L{lvl}:       {wall:9.3f} ms wall, {issue:.3f} ms "
+              f"host issue  (iters reached: {res.reached.float().mean():.2f}; "
+              f"{loops} LM steps, {wall / loops:.4f} ms wall and "
+              f"{issue / loops:.4f} ms issue each)")
         p = torch.where(~res.init_fail[:, None], res.params, p_l)
         prev = lvl
 
@@ -158,6 +182,53 @@ def main() -> dict[str, float]:
     print(f"lm_delta (chained):     {times['lm_delta']:9.3f} ms/call (CUDA "
           f"graph of 50), {times['lm_delta_eager']:.3f} ms/call eager")
 
+    # The LM-step kernel on a whole list of 4096 subsets, state in place.
+    step_cfg, arrays, out, *rest, img_hw = lm_step_problem(
+        cfg.model, NUM_SUBSETS)
+    state = lm.LMState(**{k: torch.as_tensor(v, device=dev)
+                          for k, v in arrays.items()})
+    out, scaling, n_pts, bbox, center = (torch.as_tensor(a, device=dev)
+                                         for a in (out, *rest))
+    every = torch.arange(NUM_SUBSETS, dtype=torch.int32, device=dev)
+
+    def kernel_step():
+        lm.lm_step(step_cfg, state, out, every, None, scaling, n_pts, bbox,
+                   center, img_hw)
+
+    times["lm_step"] = graph_ms(kernel_step, 50)
+    times["lm_step_eager"] = cuda_time_ms(kernel_step, 50)
+    print(f"lm_step kernel:         {times['lm_step']:9.4f} ms/call (CUDA "
+          f"graph of 50), {times['lm_step_eager']:.4f} ms/call eager; "
+          f"lm_delta alone from a graph is "
+          f"{times['lm_delta'] / times['lm_step']:.1f}x it")
+
+    # An LM iteration whose list is empty, at level 0.
+    la, st0 = levels[0], statics[0]
+    none = torch.zeros(NUM_SUBSETS, dtype=torch.bool, device=dev)
+    l0_state = lm.LMState.start(cfg, p0)
+    l0_scaling = 1.0 / la.n_points.clamp(min=1.0)
+
+    def empty_iteration():
+        idx, count = active_list(none, True)
+        asm = v2.fused_assemble(
+            cfg.model, cfg.interpolation, st0.tile_h, st0.tile_w, st0.img_h,
+            st0.img_w, la.def_img, la.pix, la.center, l0_state.p_cur,
+            la.bbox, idx, count)
+        lm.lm_step(cfg, l0_state, asm, idx, count, l0_scaling, la.n_points,
+                   la.bbox, la.center, la.img_hw)
+
+    times["empty_iteration"] = graph_ms(empty_iteration, 20)
+    empty_iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        empty_iteration()
+    times["empty_iteration_issue"] = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    print(f"empty LM iteration L0:  {times['empty_iteration']:9.4f} ms device "
+          f"(CUDA graph of 20), {times['empty_iteration_issue']:.4f} ms host "
+          "issue")
+
     # The host loop's floor: solve_level with the assembly stubbed.
     calls: list = []
     orig = v2.fused_assemble
@@ -176,7 +247,44 @@ def main() -> dict[str, float]:
           f"({loops} loop iterations, "
           f"{times['stub_ms_per_iteration']:.3f} ms each; iters reached: "
           f"{res.reached.float().mean():.2f})")
+
+    busy = chunk_busy_share(cfg, und, dfm, batch, params0, dev,
+                            correlate_frames)
+    if busy is not None:
+        times.update(busy)
     return times
+
+
+def chunk_busy_share(cfg, und, dfm, batch, params0, dev, correlate_frames,
+                     pairs: int = 8):
+    """{"chunk_wall_ms", "chunk_device_ms", "chunk_busy_share"} of one
+    chained solve of `pairs` pairs under torch.profiler (after a warm
+    run), or None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stack = torch.as_tensor(np.stack([und] + [dfm] * pairs)[..., None]
+                            .astype(np.uint8), device=dev)
+    gb = batch.to_device(dev)
+    p0 = torch.as_tensor(params0, device=dev)
+    correlate_frames(cfg, stack, gb, p0, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        correlate_frames(cfg, stack, gb, p0, device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_us = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages())
+    if not device_us:
+        print(f"chunk busy share: not measured (the profiler reports no "
+              f"device time; chunk wall {wall:.3f} ms)")
+        return None
+    share = device_us / 1e3 / wall
+    print(f"chunk busy share ({pairs} pairs): device {device_us / 1e3:.3f} "
+          f"ms of {wall:.3f} ms wall = {share:.1%} busy (torch.profiler)")
+    return {"chunk_wall_ms": wall, "chunk_device_ms": device_us / 1e3,
+            "chunk_busy_share": share}
 
 
 if __name__ == "__main__":

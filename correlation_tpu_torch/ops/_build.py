@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = [
     _PKG / "csrc" / name
-    for name in ("fused_assemble.cu", "exp_gather.cu", "exp_stages.cu")
+    for name in ("fused_assemble.cu", "lm_step.cu", "exp_gather.cu",
+                 "exp_stages.cu")
 ]
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = [
@@ -98,6 +99,25 @@ def build() -> Path:
     return path
 
 
+# Calls that make the host wait for the card.  No launcher may make one:
+# the LM loop enqueues a whole chunk without a host sync, and CUDA's sync
+# debug mode does not see calls inside this library.
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaMemcpy(", "cudaMemcpy (")
+
+
+def synchronising_calls() -> dict[str, list[str]]:
+    """{source name: the SYNC_CALLS it makes} over the library's sources
+    (empty when none synchronises)."""
+    found = {}
+    for src in _SOURCES:
+        text = src.read_text()
+        calls = [c for c in SYNC_CALLS if c in text]
+        if calls:
+            found[src.name] = calls
+    return found
+
+
 def check_launch(rc: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if rc != 0:
@@ -118,10 +138,20 @@ def load_library():
                 vp, i32, i32, i32, i32,  # img, hp, wp, img_h, img_w
                 vp, i32,  # pix, p_len
                 vp, vp, vp,  # center, params, bbox
-                vp, i32, i32,  # idx, n, num_subsets
+                vp, vp, i32, i32,  # idx, count, n, num_subsets
                 i32, i32,  # tile_h, tile_w
                 vp, ctypes.c_longlong,  # work, work_floats
                 vp, vp,  # out, stream
+            ]
+            f32 = ctypes.c_float
+            lib.lm_step_launch.restype = i32
+            lib.lm_step_launch.argtypes = [
+                i32, i32, vp, vp, vp, i32, i32,  # model, init, out, idx, count, n, S
+                vp, vp, vp, vp, i32, i32,  # scaling, n_points, bbox, center, img_h, img_w
+                vp, vp, vp, vp, vp,  # p_cur, p_lg, ab, lam, chi_lg
+                vp, vp, vp, vp, vp,  # iteration, reached, error, active, init_fail
+                f32, f32, f32, f32, f32, i32,  # precision, lambda_min/max/up/down, max_iterations
+                vp,  # stream
             ]
             lib.fused_assemble_tile_in_shared.restype = i32
             lib.fused_assemble_tile_in_shared.argtypes = [i32] * 5

@@ -26,7 +26,10 @@ stencil lies inside the tile.
 (csrc/fused_assemble.cu) for CUDA tensors and runs
 `fused_assemble_reference`, the plain PyTorch version, for CPU tensors.
 Both take an optional int32 index list of the subsets to assemble, so an
-LM loop over the still-active subsets gathers nothing.  The kernel has
+LM loop over the still-active subsets gathers nothing, and optionally the
+list's length as an int32 tensor on the device (`count`): the kernel's
+grid covers the whole list and the positions past the length return at
+once, so the loop never reads the length on the host.  The kernel has
 three paths, a group of lanes per subset for small subsets, a block per
 subset for large ones, and for very large ones (a blob) several blocks a
 subset whose partial sums a second pass adds in a fixed order;
@@ -55,8 +58,11 @@ ROW_DYC = 4  # y - center_y
 ROW_UND = 5  # undeformed intensities, rows 5 .. 5 + C (C <= 3)
 
 # Kernel launches by fused_assemble (CUDA tensors only), in all, and by
-# shape: {(p_len, tile_h, tile_w): [launches, subsets assembled]}.
-# Callers reset them with reset_launches().
+# shape: {(p_len, tile_h, tile_w): [launches, list positions launched]}.
+# The second counter is the list's capacity, not its work: where the
+# list's length stays on the device (`count`) the launch covers every
+# position and those past the length exit at once.  Callers reset them
+# with reset_launches().
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict[tuple[int, int, int], list[int]] = {}
 
@@ -280,14 +286,27 @@ def fused_assemble_reference(
     idx: torch.Tensor | None = None,
     threads: int | None = None,
     chunk: int | None = None,
+    count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch fused assembly; same arguments as fused_assemble.
     The Gram sums follow the order of `threads` threads a subset over
     spans of `chunk` pixels, by default the kernel's path for this p_len
-    (subset_threads, subset_chunks); chunk=p_len sums each subset whole."""
+    (subset_threads, subset_chunks); chunk=p_len sums each subset whole.
+    With `count` it assembles idx[:count] and returns all of idx's rows,
+    zero past the length."""
+    if count is not None:
+        whole = torch.zeros((idx.shape[0], 8, 8), dtype=torch.float32,
+                            device=img.device)
+        live = int(count)
+        whole[:live] = fused_assemble_reference(
+            model, interp, tile_h, tile_w, img_h, img_w, img, pix, center,
+            params, bbox, idx[:live], threads, chunk)
+        return whole
     if idx is not None:
         sel = idx.long()
         pix, center, params, bbox = pix[sel], center[sel], params[sel], bbox[sel]
+    if pix.shape[0] == 0:
+        return torch.zeros((0, 8, 8), dtype=torch.float32, device=img.device)
     hp, wp, channels = img.shape
     taps, halo = _taps_halo(interp)
 
@@ -402,7 +421,8 @@ def kernel_order_sum(prod: torch.Tensor, threads: int,
     return total
 
 
-def _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w):
+def _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w,
+                  count=None):
     dev = img.device
     named = {"img": img, "pix": pix, "center": center, "params": params,
              "bbox": bbox}
@@ -434,6 +454,13 @@ def _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w):
             raise TypeError("idx must be a 1-D int32 tensor")
         if idx.device != dev or not idx.is_contiguous():
             raise ValueError("idx must be contiguous and on the image device")
+    if count is not None:
+        if idx is None:
+            raise ValueError("count needs an index list")
+        if count.dtype != torch.int32 or tuple(count.shape) != (1,):
+            raise TypeError("count must be an int32 tensor of shape [1]")
+        if count.device != dev:
+            raise ValueError("count must be on the image device")
         # On the card the kernel checks every index itself (a host check
         # would cost a sync per assembly); on the CPU a negative index
         # would wrap silently, so check here.
@@ -456,13 +483,17 @@ def fused_assemble(
     params: torch.Tensor,
     bbox: torch.Tensor,
     idx: torch.Tensor | None = None,
+    count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused assembly of the subsets `idx` (all when None) -> [n, 8, 8].
 
     img: [Hp, Wp, C] float32 deformed image, padded by prepare_image;
     img_h, img_w: its true dims (validity windows).  pix: [S, 8, P]
     (pack_pixels); center [S, 2]; params [S, NP]; bbox [S, 4, 2]
-    (subset_bbox); idx: int32 [n] subset indices.
+    (subset_bbox); idx: int32 [n] subset indices; count: optional int32
+    [1] on the device, the list's length: only idx[:count] are assembled
+    (the kernel's rows past it are left unwritten, the plain version's
+    zero), with no host read of the length.
 
     CUDA tensors launch the CUDA kernel; CPU tensors run
     fused_assemble_reference.  Anything else raises.  An index outside
@@ -470,11 +501,12 @@ def fused_assemble(
     like a device-side assert, and the next synchronising call raises.
     """
     global LAUNCHES
-    _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w)
+    _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w,
+                  count)
     if img.device.type == "cpu":
         return fused_assemble_reference(
             model, interp, tile_h, tile_w, img_h, img_w, img, pix, center,
-            params, bbox, idx,
+            params, bbox, idx, count=count,
         )
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
@@ -496,7 +528,9 @@ def fused_assemble(
         ptr(img.data_ptr()), hp, wp, int(img_h), int(img_w),
         ptr(pix.data_ptr()), p_len,
         ptr(center.data_ptr()), ptr(params.data_ptr()), ptr(bbox.data_ptr()),
-        ptr(idx.data_ptr() if idx is not None else None), n, params.shape[0],
+        ptr(idx.data_ptr() if idx is not None else None),
+        ptr(count.data_ptr() if count is not None else None), n,
+        params.shape[0],
         int(tile_h), int(tile_w),
         ptr(work.data_ptr() if work is not None else None),
         0 if work is None else work.numel(), ptr(out.data_ptr()),

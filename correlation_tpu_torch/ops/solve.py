@@ -8,11 +8,42 @@ system yields a non-finite update: that is the SOLVER signal the LM
 loop reads.  torch.linalg.cholesky would raise or report instead, so
 it is not used.  This is plain tensor code; the JAX package leaves the
 same step to XLA.
+
+lm_step is one whole LM iteration of a pyramid level after the assembly
+(the tail of the JAX engine's _make_body, correlation_tpu/engine.py:343-453,
+and, as its `init` mode, the initial step of its solve_level :597-626) over
+a list of subsets: chi, the lambda schedule, the choice of the fresh or
+the cached Gram, lm_delta, the saved-parameter step, the error codes and
+every write of the state.  On CUDA tensors it launches the hand-written
+kernel csrc/lm_step.cu, one thread a listed subset, which reads the
+list's length from the device, so an LM loop needs no host read between
+iterations; on CPU tensors it runs lm_step_reference, the plain version,
+whose arithmetic the kernel repeats op for op, so the two agree bit for
+bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
 import torch
+
+from correlation_tpu_torch.config import ErrorCode, SolverConfig
+from correlation_tpu_torch.models.warp import warp_points
+
+_FLT_MAX = float(np.finfo(np.float32).max)
+
+# Launches of the LM-step kernel (CUDA tensors only); reset_launches()
+# zeroes it.
+LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    """Zero LAUNCHES."""
+    global LAUNCHES
+    LAUNCHES = 0
 
 
 def _chol_solve_cols(a, b, n):
@@ -66,3 +97,254 @@ def lm_delta(a_mat, b_vec, lam, scaling):
             a[i][j] = e
     b = [b_vec[:, i] * scaling for i in range(n)]
     return torch.stack(_chol_solve_cols(a, b, n), dim=-1)
+
+
+class LMState(NamedTuple):
+    """The LM loop's state of one level, [S]-major; lm_step updates it in
+    place (only the listed rows)."""
+
+    p_cur: torch.Tensor  # [S, NP] float32, the tentative parameters
+    p_lg: torch.Tensor  # [S, NP] float32, the last-good parameters
+    ab: torch.Tensor  # [S, 8, 8] float32, the last-good Gram (cached A/b)
+    lam: torch.Tensor  # [S] float32
+    chi_lg: torch.Tensor  # [S] float32, the last-good chi
+    iteration: torch.Tensor  # [S] int32, 1-based
+    reached: torch.Tensor  # [S] int32, completed iterations
+    error: torch.Tensor  # [S] int32 ErrorCode
+    active: torch.Tensor  # [S] bool
+    init_fail: torch.Tensor  # [S] bool, the initial step failed
+
+    @classmethod
+    def start(cls, cfg: SolverConfig, params0: torch.Tensor) -> "LMState":
+        """The state before the initial step: p_cur = p_lg = params0,
+        lambda = lambda_init, iteration 1, the rest zero or False."""
+        s = params0.shape[0]
+        dev = params0.device
+
+        def zeros(dtype, *shape):
+            return torch.zeros((s, *shape), dtype=dtype, device=dev)
+
+        return cls(
+            p_cur=params0.clone(memory_format=torch.contiguous_format),
+            p_lg=params0.clone(memory_format=torch.contiguous_format),
+            ab=zeros(torch.float32, 8, 8),
+            lam=torch.full((s,), cfg.lambda_init, dtype=torch.float32,
+                           device=dev),
+            chi_lg=zeros(torch.float32),
+            iteration=torch.ones(s, dtype=torch.int32, device=dev),
+            reached=zeros(torch.int32), error=zeros(torch.int32),
+            active=zeros(torch.bool), init_fail=zeros(torch.bool),
+        )
+
+
+def oob_code(model, params, bbox, center, img_hw):
+    """MODEL_OUT_OF_IMAGE where a warped bounding-box corner leaves the
+    image (or is not finite), else INTERPOLATION_OUT_OF_IMAGE: params
+    [n, NP], bbox [n, 4, 2], center [n, 2] -> [n] int32."""
+    img_h, img_w = img_hw
+    corners = warp_points(model, params, bbox, center)
+    x, y = corners[..., 0], corners[..., 1]
+    out = (
+        ~torch.isfinite(x) | ~torch.isfinite(y)
+        | (x < 0.0) | (x > img_w - 1.0) | (y < 0.0) | (y > img_h - 1.0)
+    )
+    return torch.where(
+        out.any(dim=1),
+        int(ErrorCode.MODEL_OUT_OF_IMAGE),
+        int(ErrorCode.INTERPOLATION_OUT_OF_IMAGE),
+    ).to(torch.int32)
+
+
+def _code(code: ErrorCode, like):
+    return torch.full_like(like, int(code), dtype=torch.int32)
+
+
+def lm_step_reference(cfg: SolverConfig, state: LMState, out, idx, count,
+                      scaling, n_points, bbox, center, img_hw,
+                      init: bool = False) -> None:
+    """Plain PyTorch lm_step; same arguments.  Gathers the listed rows,
+    updates them and writes them back (index_put), in the JAX body's
+    arithmetic, each float32 op as the kernel does it."""
+    rows = idx if count is None else idx[:int(count)]
+    n = rows.numel()
+    if n == 0:
+        return
+    rows = rows.long()
+    out = out[:n]
+    num_p = state.p_cur.shape[1]
+    st = state
+    sc = scaling[rows]
+    q = st.p_cur[rows]
+    bb, cc = bbox[rows], center[rows]
+    if init:
+        chi0 = out[:, num_p, num_p] * sc
+        interp_err = out[:, num_p + 1, num_p + 1] > 0.0
+        dp0 = lm_delta(out[:, :num_p, :num_p], out[:, :num_p, num_p],
+                       st.lam[rows], sc)
+        nok = n_points[rows] > 0
+        solver0 = ~interp_err & nok & ~torch.isfinite(dp0).all(dim=-1)
+        fail = interp_err | ~nok | solver0
+        st.error[rows] = torch.where(
+            interp_err,
+            oob_code(cfg.model, q, bb, cc, img_hw),
+            torch.where(
+                ~nok,
+                _code(ErrorCode.BAD_DOMAIN, rows),
+                torch.where(solver0, _code(ErrorCode.SOLVER, rows),
+                            _code(ErrorCode.NONE, rows)),
+            ),
+        )
+        st.p_cur[rows] = torch.where(fail[:, None], q, q + dp0)
+        st.chi_lg[rows] = torch.where(fail, _FLT_MAX, chi0)
+        st.active[rows] = ~fail
+        st.init_fail[rows] = fail
+        st.ab[rows] = out
+        return
+
+    prec = cfg.precision
+    plg = st.p_lg[rows]
+    lam_c = st.lam[rows]
+    lgc = st.chi_lg[rows]
+    it = st.iteration[rows]
+
+    chi = out[:, num_p, num_p] * sc
+    err_now = out[:, num_p + 1, num_p + 1] > 0.0
+    delta_chi = torch.abs((lgc - chi) / (torch.maximum(lgc, chi) + prec))
+    converging = chi <= lgc
+    lam_next = torch.where(
+        converging,
+        torch.clamp(lam_c * cfg.lambda_down, min=cfg.lambda_min),
+        torch.clamp(lam_c * cfg.lambda_up, max=cfg.lambda_max),
+    )
+    ab_old = st.ab[rows]
+    ab_sel = torch.where(converging[:, None, None], out, ab_old)
+    dp = lm_delta(ab_sel[:, :num_p, :num_p], ab_sel[:, :num_p, num_p],
+                  lam_next, sc)
+    p_new = torch.where(converging[:, None], q, plg) + dp
+    solver_now = ~err_now & ~torch.isfinite(dp).all(dim=-1)
+    do_step = ~(err_now | solver_now)
+    converged = delta_chi < prec
+    next_iter = it + 1
+    exhausted = (next_iter > cfg.max_iterations) | (lam_next >= cfg.lambda_max)
+    accept = do_step & converging
+
+    st.p_cur[rows] = torch.where(do_step[:, None], p_new, q)
+    st.p_lg[rows] = torch.where(accept[:, None], q, plg)
+    st.ab[rows] = torch.where(accept[:, None, None], out, ab_old)
+    st.chi_lg[rows] = torch.where(accept, chi, lgc)
+    st.lam[rows] = torch.where(do_step, lam_next, lam_c)
+    st.iteration[rows] = torch.where(do_step, next_iter, it)
+    st.reached[rows] = torch.where(do_step, it, st.reached[rows])
+    st.active[rows] = do_step & ~(converged | exhausted)
+    st.error[rows] = torch.where(
+        err_now,
+        oob_code(cfg.model, q, bb, cc, img_hw),
+        torch.where(
+            solver_now,
+            _code(ErrorCode.SOLVER, rows),
+            torch.where(
+                do_step & exhausted & ~converged,
+                _code(ErrorCode.MAX_ITERS_REACHED, rows),
+                st.error[rows],
+            ),
+        ),
+    )
+
+
+def _check_step(state: LMState, out, idx, count, scaling, n_points, bbox,
+                center):
+    """Raise unless every tensor has the dtype, shape, device and layout
+    the kernel reads."""
+    s, num_p = state.p_cur.shape
+    if num_p not in (1, 2, 3, 6):
+        raise ValueError(f"p_cur must be [S, NP], NP in (1, 2, 3, 6), got "
+                         f"{list(state.p_cur.shape)}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    want = {
+        "p_cur": (state.p_cur, f32, (s, num_p)),
+        "p_lg": (state.p_lg, f32, (s, num_p)),
+        "ab": (state.ab, f32, (s, 8, 8)),
+        "lam": (state.lam, f32, (s,)),
+        "chi_lg": (state.chi_lg, f32, (s,)),
+        "iteration": (state.iteration, i32, (s,)),
+        "reached": (state.reached, i32, (s,)),
+        "error": (state.error, i32, (s,)),
+        "active": (state.active, b8, (s,)),
+        "init_fail": (state.init_fail, b8, (s,)),
+        "scaling": (scaling, f32, (s,)),
+        "n_points": (n_points, f32, (s,)),
+        "bbox": (bbox, f32, (s, 4, 2)),
+        "center": (center, f32, (s, 2)),
+        "idx": (idx, i32, (idx.shape[0],)),
+        "out": (out, f32, (out.shape[0], 8, 8)),
+    }
+    if count is not None:
+        want["count"] = (count, i32, (1,))
+    dev = state.p_cur.device
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {list(shape)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+    if out.shape[0] < idx.shape[0]:
+        raise ValueError(f"out has {out.shape[0]} rows for a list of "
+                         f"{idx.shape[0]}")
+
+
+def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
+            n_points, bbox, center, img_hw, init: bool = False) -> None:
+    """One LM iteration (init: the initial step) of the subsets listed in
+    idx[:count], in place on `state`.
+
+    out: [n, 8, 8] the assembly of list position i at row i (A, b, chi and
+    the bad-pixel count in the fused assembly's layout); idx: int32 [n]
+    subset indices, without repeats; count: int32 [1] on the device, the
+    list's length (None: all n); scaling [S] = 1/N (0 for an empty
+    subset); n_points [S] float32; bbox [S, 4, 2] and center [S, 2] the
+    level's; img_hw the deformed image's (height, width).
+
+    The initial step classifies the assembly at the guess (error code,
+    init_fail, active), takes the first step from it and caches it; an
+    iteration compares the fresh chi with the last-good one, updates
+    lambda, steps from the fresh Gram on a converging step and from the
+    cached one from the last-good parameters on a diverging one, and
+    stops a subset on convergence (delta-chi < precision), on
+    max_iterations or lambda_max, or on an error.
+
+    CUDA tensors launch the kernel; CPU tensors run lm_step_reference.
+    """
+    global LAUNCHES
+    _check_step(state, out, idx, count, scaling, n_points, bbox, center)
+    dev = state.p_cur.device
+    if dev.type == "cpu":
+        lm_step_reference(cfg, state, out, idx, count, scaling, n_points,
+                          bbox, center, img_hw, init)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from correlation_tpu_torch.ops._build import check_launch, load_library
+
+    n = idx.shape[0]
+    if n == 0:
+        return
+    ptr = ctypes.c_void_p
+    st = state
+    img_h, img_w = img_hw
+    rc = load_library().lm_step_launch(
+        int(cfg.model), int(bool(init)), ptr(out.data_ptr()),
+        ptr(idx.data_ptr()),
+        ptr(count.data_ptr() if count is not None else None), n,
+        st.p_cur.shape[0], ptr(scaling.data_ptr()), ptr(n_points.data_ptr()),
+        ptr(bbox.data_ptr()), ptr(center.data_ptr()), int(img_h), int(img_w),
+        ptr(st.p_cur.data_ptr()), ptr(st.p_lg.data_ptr()),
+        ptr(st.ab.data_ptr()), ptr(st.lam.data_ptr()),
+        ptr(st.chi_lg.data_ptr()), ptr(st.iteration.data_ptr()),
+        ptr(st.reached.data_ptr()), ptr(st.error.data_ptr()),
+        ptr(st.active.data_ptr()), ptr(st.init_fail.data_ptr()),
+        cfg.precision, cfg.lambda_min, cfg.lambda_max, cfg.lambda_up,
+        cfg.lambda_down, int(cfg.max_iterations),
+        ptr(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    check_launch(rc, "lm_step")
+    LAUNCHES += 1

@@ -227,3 +227,92 @@ def assembly_levels(cfg: SolverConfig, batch: SubsetBatch, pyramid: list,
                     st.img_h, st.img_w, lv.def_img, lv.pix, lv.center,
                     torch.as_tensor(p, device=device), lv.bbox)
     return out
+
+
+# Roles of the rows of lm_step_problem, cycled every 16 rows.
+LM_STEP_ROLES = (
+    "converging", "diverging", "singular fresh Gram", "singular cached Gram",
+    "bad pixels, box inside", "bad pixels, box outside", "at max_iterations",
+    "lambda at lambda_min", "lambda at lambda_max", "converged",
+    "NaN parameters, bad pixels", "infinite last-good parameters",
+    "NaN in the Gram", "parameters out of the image, bad pixels",
+    "empty subset", "inactive",
+)
+
+
+def lm_step_problem(model: FittingModel, num_subsets: int = 4096,
+                    seed: int = 0, img_hw: tuple[int, int] = (1024, 1024),
+                    max_iterations: int = 50):
+    """Inputs of ops/solve.lm_step made with NumPy from `seed`: (cfg,
+    arrays, out, scaling, n_points, bbox, center, img_hw), where `arrays`
+    holds LMState's fields by name and `out` [S, 8, 8] each subset's
+    assembly, in subset order.  Row r plays LM_STEP_ROLES[r % 16]: every
+    branch of the step and of the initial step (SOLVER from a singular
+    Gram, both out-of-image codes, MAX_ITERS_REACHED from max_iterations
+    and from lambda_max, both lambda clamps, convergence, BAD_DOMAIN),
+    rows of NaN and infinite values, and inactive rows; the other values
+    of each row are random (Grams positive definite, 21 x 21 px boxes
+    inside the image)."""
+    rng = np.random.default_rng(seed)
+    s = num_subsets
+    num_p = {FittingModel.U: 1, FittingModel.UV: 2, FittingModel.UVQ: 3,
+             FittingModel.AFFINE: 6}[model]
+    cfg = SolverConfig(model=model, max_iterations=max_iterations)
+    role = np.arange(s) % len(LM_STEP_ROLES)
+    img_h, img_w = img_hw
+    center = np.stack([rng.uniform(20, img_w - 21, s),
+                       rng.uniform(20, img_h - 21, s)], -1).astype(np.float32)
+    corners = np.array([[-10, -10], [-10, 10], [10, -10], [10, 10]],
+                       np.float32)
+    bbox = (center[:, None, :] + corners).astype(np.float32)
+    n_points = rng.integers(100, 442, s).astype(np.float32)
+    n_points[role == 14] = 0.0
+    scaling = np.where(n_points > 0, np.float32(1.0)
+                       / np.maximum(n_points, np.float32(1.0)),
+                       np.float32(0.0)).astype(np.float32)
+
+    def grams(chi_raw):
+        g = rng.normal(size=(s, num_p, 3 * num_p))
+        out = np.zeros((s, 8, 8), np.float32)
+        out[:, :num_p, :num_p] = np.einsum("sik,sjk->sij", g, g) * 50.0
+        b = rng.normal(size=(s, num_p)) * 30.0
+        out[:, :num_p, num_p] = b
+        out[:, num_p, :num_p] = b
+        out[:, num_p, num_p] = chi_raw
+        return out
+
+    p_cur = (rng.normal(size=(s, num_p)) * 0.05).astype(np.float32)
+    p_lg = (p_cur + rng.normal(size=(s, num_p)) * 0.01).astype(np.float32)
+    lam = (10.0 ** rng.uniform(-6, 2, s)).astype(np.float32)
+    chi_lg = rng.uniform(50, 200, s).astype(np.float32)
+    chi_new = chi_lg * rng.uniform(0.5, 0.9, s).astype(np.float32)
+    chi_new[np.isin(role, (1, 3, 8))] *= 3.0
+    chi_new[role == 9] = chi_lg[role == 9] * np.float32(1 - 2e-4)
+    n_raw = np.maximum(n_points, 1.0)
+    ab = grams(chi_lg * n_raw)
+    out = grams(chi_new * n_raw)
+    out[role == 2, :num_p, :] = 0.0
+    out[role == 2, :, :num_p] = 0.0
+    ab[role == 3, :num_p, :] = 0.0
+    ab[role == 3, :, :num_p] = 0.0
+    out[role == 4, num_p + 1, num_p + 1] = 3.0
+    out[role == 5, num_p + 1, num_p + 1] = 1.0
+    p_cur[role == 5, 0] = img_w + 50.0
+    iteration = rng.integers(1, max_iterations - 1, s).astype(np.int32)
+    iteration[role == 6] = max_iterations
+    lam[role == 7] = 2e-9
+    lam[role == 8] = 3e8
+    p_cur[role == 10] = np.nan
+    p_lg[role == 11] = np.inf
+    out[role == 12, 0, 0] = np.nan
+    p_cur[role == 13, num_p - 1] = -40.0
+    out[np.isin(role, (10, 13)), num_p + 1, num_p + 1] = 2.0
+    active = role != 15
+    arrays = dict(
+        p_cur=p_cur, p_lg=p_lg, ab=ab, lam=lam, chi_lg=chi_lg,
+        iteration=iteration,
+        reached=np.maximum(iteration - 1, 0).astype(np.int32),
+        error=np.where(role == 15, 5, 0).astype(np.int32),
+        active=active, init_fail=np.zeros(s, bool),
+    )
+    return cfg, arrays, out, scaling, n_points, bbox, center, img_hw

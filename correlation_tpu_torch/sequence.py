@@ -16,19 +16,23 @@ pairs per engine.correlate_frames call; strict-Lagrangian sequences and
 frame_chunk = 1 solve pair by pair through engine.correlate.  The host
 state is NumPy, as in the JAX package.
 
+The chunked path is the JAX package's pipelined loop: chunk i + 1 is
+dispatched, seeded from chunk i's carry on the device, before chunk i's
+results are fetched, and the next stack is staged meanwhile; on the card
+the fixed-budget LM loop (engine.solve_level) enqueues a whole chunk
+without one host read, so the host's staging and record keeping overlap
+the card's solve.  should_stop is polled where the JAX loop polls it: once
+for chunk i + 1, before chunk i's records are emitted (a stop there still
+emits chunk i, then ends the run, and chunk i + 1 is never dispatched),
+and before each of a chunk's records after its first (a stop there, or a
+STOP_ALL error, drops the chunk in flight).  The same should_stop so
+leaves the same records and checkpoint in both packages.
+
 What the JAX chunked path does for the TPU and this port does not:
   * it pads the tail chunk to the compiled chunk shape; PyTorch runs
     eagerly, so the tail chunk is simply shorter;
   * it demotes the kernel's bf16 image path when a frame is not
-    uint8-valued (guard_p1); the CUDA kernel reads float32 images;
-  * it dispatches chunk i + 1 before it fetches chunk i's results.  The
-    port's solve synchronises every LM iteration, so there is nothing to
-    overlap: chunk i's records are emitted, then chunk i + 1 is solved.
-    should_stop is polled where the JAX loop polls it: once for chunk
-    i + 1, before chunk i's records are emitted (a stop there still emits
-    chunk i, then ends the run), and before each of a chunk's records
-    after its first.  The same should_stop so leaves the same records and
-    checkpoint in both packages.
+    uint8-valued (guard_p1); the CUDA kernel reads float32 images.
 As the JAX chunked path does, a sequence's first chunk is seeded from the
 host state (p = params = 0, prev = the frame-0 guess), so the solver's
 guess for the second pair is 2 p1, while the records report the
@@ -576,7 +580,17 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
     engine.correlate_frames call.  The domain advance of the Lagrangian
     description runs inside the chunk (the engine carries the offsets) and
     is mirrored here on the host, so that records, checkpoints and resume
-    state follow the device exactly."""
+    state follow the device exactly.
+
+    The loop is the JAX package's pipelined one (correlation_tpu/
+    sequence.py:666-760): chunk i + 1 is dispatched, seeded from chunk i's
+    carry on the device, before chunk i's results are fetched, and the
+    stack of chunk i + 2 is staged meanwhile.  On the card the stack goes
+    up from pinned memory and the packed results come down into pinned
+    memory, both without waiting (non_blocking), so the host's staging
+    and record keeping overlap the card's solve.  A stop (STOP_ALL, or a
+    should_stop while a chunk's records are emitted) drops the chunk in
+    flight, as in JAX."""
     total_pairs = len(frames) - 1
     solver = cfg.solver
     model = solver.model
@@ -586,21 +600,33 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
     stop_frame = cfg.error_mode == ErrorMode.STOP_FRAME
     stage_u8 = bool(getattr(frames, "uint8_source", False))
     dtype = np.uint8 if stage_u8 else np.float32
+    on_card = torch.device(device).type == "cuda"
     und0 = np.asarray(frames[0], dtype) if ref_first else None
     und_center = np.asarray(state.und_center, np.float32)
     n_points = batch.mask[0].sum(dim=-1).to(torch.int32).cpu().numpy()
     host_off = np.zeros((len(state.und_points), 2), np.float32)
     carry = None
 
-    def solve(frame):
-        """Solve the chunk starting at `frame`: (frame, k, packed)."""
-        nonlocal carry
+    def stage(frame):
+        """(k, stack) of the chunk starting at `frame`, its copy to the
+        device started."""
         k = min(cfg.frame_chunk, total_pairs - frame)
         base = und0 if ref_first else np.asarray(frames[frame], dtype)
-        stack = np.stack(
+        stack = torch.from_numpy(np.stack(
             [base] + [np.asarray(frames[frame + j + 1], dtype)
                       for j in range(k)]
-        )
+        ))
+        if on_card:
+            return k, stack.pin_memory().to(device, non_blocking=True)
+        return k, stack.to(device)
+
+    def dispatch(frame, staged):
+        """Enqueue the chunk starting at `frame` on its staged stack and
+        the copy of its packed results to the host: (frame, k, results,
+        event), where the event marks the copy's end (None off the
+        card)."""
+        nonlocal carry
+        k, stack = staged
         if carry is None:
             # The host state seeds the chain, fresh or resumed, as in JAX.
             seeds = dict(p_seed=state.params, prev_seed=state.prev_params,
@@ -613,18 +639,32 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
                  "ucen_seed"), carry))
         with measured(k * batch.num_subsets):
             out = correlate_frames(
-                solver, torch.from_numpy(stack).to(device), batch,
-                guess0=state.guess, reference_first=ref_first,
-                stop_frame=stop_frame, lagrangian=lagr,
-                float_centers=state.explicit_centers,
+                solver, stack, batch, guess0=state.guess,
+                reference_first=ref_first, stop_frame=stop_frame,
+                lagrangian=lagr, float_centers=state.explicit_centers,
                 first_chunk=frame == 0, device=device, mesh=mesh, **seeds,
             )
-            packed = out["packed"].cpu().numpy()
-        carry = out["carry"]
-        return frame, k, packed
+            carry = out["carry"]
+            packed, done = out["packed"], None
+            if packed.is_cuda:
+                host = torch.empty(packed.shape, dtype=packed.dtype,
+                                   pin_memory=True)
+                packed = host.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return frame, k, packed, done
+
+    def fetch(packed, done):
+        """The packed results as a NumPy array of their own, once their
+        copy has landed."""
+        with measured(0):  # a wait, counted as solver time
+            if done is not None:
+                done.synchronize()
+            return packed.numpy().copy()
 
     def emit_chunk(frame, k, packed, halt):
-        """Emit a solved chunk's records; False when the run ends here."""
+        """Emit a solved chunk's records and save the checkpoint where
+        due; False when a stop (STOP_ALL or should_stop) ends the run."""
         nonlocal host_off
         params_k = packed[..., :num_p]
         chi_k = packed[..., num_p]
@@ -669,23 +709,29 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
                         for j in range(emitted)))
         ):
             save_ckpt(next_frame)
-        return not ends
+        return not (stop_now or cancelled)
 
-    # The next chunk is polled for before the solved one is emitted.
-    frame, pending = start_frame, None
-    while pending is not None or frame < total_pairs:
-        halt = (frame < total_pairs and should_stop is not None
-                and should_stop())
+    # should_stop is polled for the next chunk before the pending one is
+    # fetched and emitted; the next chunk is dispatched in between.
+    frame, staged, pending, halt = start_frame, stage(start_frame), None, False
+    while pending is not None or (frame < total_pairs and not halt):
+        out = None
+        if frame < total_pairs and not halt:
+            if should_stop is not None and should_stop():
+                halt = True
+                if pending is None:
+                    save_ckpt(frame)
+            else:
+                out = dispatch(frame, staged)
+                if frame + out[1] < total_pairs:
+                    staged = stage(frame + out[1])
         if pending is not None:
-            if not emit_chunk(*pending, halt):
-                return
-            pending = None
-        elif halt:
-            save_ckpt(frame)
-            return
-        if frame < total_pairs:
-            pending = solve(frame)
-            frame += pending[1]
+            pframe, pk, packed, done = pending
+            if not emit_chunk(pframe, pk, fetch(packed, done), halt):
+                return  # the chunk in flight is dropped
+        pending = out
+        if out is not None:
+            frame += out[1]
 
 
 def run_sequence_from_files(

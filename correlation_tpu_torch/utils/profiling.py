@@ -5,9 +5,11 @@ hooks on torch.profiler: a region is a record_function range (and an NVTX
 range once the card is in use), and a trace is a Chrome trace file.
 
 SolveMeter is the JAX package's always-on solves/s meter
-(correlation_tpu/utils/profiling.py).  PyTorch returns from a CUDA call
-before the card has finished, so the meter synchronises the device before
-it reads the clock, at both ends of a measured region.
+(correlation_tpu/utils/profiling.py).  It reads the host's clock around
+a region and synchronises nothing, so that a pipelined loop keeps its
+overlap; PyTorch returns from a CUDA call before the card has finished,
+so a region measures the card's work only where it ends by fetching
+results (run_sequence's per-pair solve and its waits for a chunk).
 
 cuda_time_ms times eager calls, host issue included: for a kernel of tens
 of microseconds that is mostly the wrapper's host cost.  graph_ms replays
@@ -74,11 +76,6 @@ def stop_trace() -> str:
     return path
 
 
-def _sync() -> None:
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
 class SolveMeter:
     """Accumulates subsets solved and wall time; reports solves/s."""
 
@@ -89,13 +86,15 @@ class SolveMeter:
 
     @contextlib.contextmanager
     def measure(self, num_subsets: int):
-        _sync()
+        """Time the block on the host's clock, as the JAX package's meter
+        does: a block that fetches its results waits for the card.  A
+        block of 0 subsets (a wait for results) adds its time and no
+        call."""
         t0 = time.perf_counter()
         yield
-        _sync()
         self.seconds += time.perf_counter() - t0
         self.subsets += num_subsets
-        self.frames += 1
+        self.frames += num_subsets > 0
 
     @property
     def solves_per_s(self) -> float:

@@ -1,0 +1,464 @@
+"""The port's LM step (ops/solve.lm_step) and its device-list loop
+against the JAX engine.
+
+One step: the plain lm_step against one step of JAX's _make_body (its
+LM iteration, correlation_tpu/engine.py), given the same packed state made
+with NumPy from a seed and the same assembly (a stub that returns fixed
+Grams), over rows that converge, diverge, meet a singular system, an
+interpolation error with the bounding box inside or outside the image,
+max_iterations, lambda at either clamp, convergence, and inactive rows.
+The initial step (init=True) likewise against JAX's solve_level with the
+loop taken out.  Error codes, iterations, reached, active and lambda are
+held exactly; parameters and chi to rtol 1e-5, the tolerance of
+test_torch_solve.py, since JAX takes lax.rsqrt of the pivot.
+
+Then: a listed step equals the whole batch's step on its rows bit for
+bit and leaves the other rows alone; the device-side list (active_list)
+and the fused assembly's device length on the CPU; the Python constants
+round as the kernel takes them; and solve_level's fixed-budget loop (no
+stop at the first empty list, as on the card) equals the early-stopping
+one bit for bit and JAX's solve on tests/test_engine.py's oracle problem.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from correlation_tpu import engine as jeng
+from correlation_tpu.config import FittingModel as JModel
+from correlation_tpu.config import SolverConfig as JSolver
+from correlation_tpu_torch import engine
+from correlation_tpu_torch.config import (
+    NUM_PARAMS,
+    ErrorCode,
+    FittingModel,
+    Interpolation,
+    SolverConfig,
+)
+from correlation_tpu_torch.ops import assemble_v2 as v2
+from correlation_tpu_torch.ops.solve import LMState, lm_step
+
+torch.set_num_threads(2)
+
+RTOL = 1e-5
+IMG_HW = (90, 100)
+MAX_IT = 12
+S = 16
+
+# Row roles in the step test.
+CONVERGE, DIVERGE, SING_FRESH, SING_CACHED = 0, 1, 2, 3
+ERR_INSIDE, ERR_OUTSIDE, MAX_ITERS, LAM_LOW = 4, 5, 6, 7
+LAM_HIGH, CONVERGED, INACTIVE, INACTIVE2 = 8, 9, 10, 11
+
+
+def _spd(rng, num_p, scale=50.0):
+    g = rng.normal(size=(num_p, 3 * num_p))
+    return (g @ g.T * scale).astype(np.float32)
+
+
+def _gram(rng, num_p, chi_raw, bad=0.0, singular=False):
+    """An 8x8 Gram in the fused assembly's layout."""
+    out = np.zeros((8, 8), np.float32)
+    if not singular:
+        out[:num_p, :num_p] = _spd(rng, num_p)
+        out[:num_p, num_p] = rng.normal(size=num_p) * 30.0
+        out[num_p, :num_p] = out[:num_p, num_p]
+    out[num_p, num_p] = chi_raw
+    out[num_p + 1, num_p + 1] = bad
+    return out
+
+
+def _problem(model, seed=3):
+    """(cfg, state arrays, out [S, 8, 8], scaling, n_points, bbox, center)."""
+    rng = np.random.default_rng(seed)
+    num_p = NUM_PARAMS[model]
+    cfg = SolverConfig(model=model, max_iterations=MAX_IT)
+    center = np.stack([rng.uniform(30, 60, S), rng.uniform(30, 60, S)],
+                      -1).astype(np.float32)
+    half = 6.0
+    bbox = np.stack([center + [-half, -half], center + [-half, half],
+                     center + [half, -half], center + [half, half]],
+                    1).astype(np.float32)
+    n_points = rng.integers(60, 170, S).astype(np.float32)
+    scaling = np.float32(1.0) / n_points  # float32 division, as JAX's
+    p_cur = (rng.normal(size=(S, num_p)) * 0.05).astype(np.float32)
+    p_lg = (p_cur + rng.normal(size=(S, num_p)) * 0.01).astype(np.float32)
+    lam = (10.0 ** rng.uniform(-6, 2, S)).astype(np.float32)
+    chi_lg = rng.uniform(50, 200, S).astype(np.float32)
+    iteration = rng.integers(1, MAX_IT - 1, S).astype(np.int32)
+    reached = np.maximum(iteration - 1, 0).astype(np.int32)
+    error = np.zeros(S, np.int32)
+    active = np.ones(S, bool)
+    ab = np.stack([_gram(rng, num_p, c * n) for c, n in
+                   zip(chi_lg, n_points)])
+    # Fresh chi below the last-good one converges, above it diverges.
+    chi_new = chi_lg * rng.uniform(0.5, 0.9, S).astype(np.float32)
+    chi_new[[DIVERGE, SING_CACHED, LAM_HIGH]] *= 3.0
+    chi_new[CONVERGED] = chi_lg[CONVERGED] * (1 - 2e-4)
+    out = np.stack([_gram(rng, num_p, c * n) for c, n in
+                    zip(chi_new, n_points)])
+    out[SING_FRESH] = _gram(rng, num_p, out[SING_FRESH, num_p, num_p],
+                            singular=True)
+    ab[SING_CACHED] = _gram(rng, num_p, ab[SING_CACHED, num_p, num_p],
+                            singular=True)
+    out[ERR_INSIDE, num_p + 1, num_p + 1] = 3.0
+    out[ERR_OUTSIDE, num_p + 1, num_p + 1] = 1.0
+    p_cur[ERR_OUTSIDE, 0] = 70.0  # the warped box leaves the image
+    iteration[MAX_ITERS] = MAX_IT
+    lam[LAM_LOW] = 2e-9
+    lam[LAM_HIGH] = 3e8
+    active[[INACTIVE, INACTIVE2]] = False
+    error[INACTIVE2] = int(ErrorCode.SOLVER)
+    state = dict(p_cur=p_cur, p_lg=p_lg, ab=ab, lam=lam, chi_lg=chi_lg,
+                 iteration=iteration, reached=reached, error=error,
+                 active=active, init_fail=np.zeros(S, bool))
+    return cfg, state, out, scaling, n_points, bbox, center
+
+
+def _port_state(arrays) -> LMState:
+    return LMState(**{k: torch.from_numpy(np.array(v))
+                      for k, v in arrays.items()})
+
+
+def _jax_cfg(cfg):
+    return JSolver(model=JModel(int(cfg.model)),
+                   max_iterations=cfg.max_iterations)
+
+
+def _jax_stub(out, num_p):
+    flat_t = jnp.asarray(out.reshape(out.shape[0], 64).T)
+
+    def assemble(params):
+        del params
+        return flat_t, flat_t[9 * num_p], flat_t[9 * (num_p + 1)] > 0.0
+
+    return assemble
+
+
+def _jax_level(bbox, center, n_points):
+    return types.SimpleNamespace(
+        center=jnp.asarray(center), bbox=jnp.asarray(bbox),
+        img_hw=IMG_HW, n_points=jnp.asarray(n_points), pixdata=None)
+
+
+def _step(cfg, state, out, scaling, n_points, bbox, center, rows,
+          init=False, count=None):
+    """lm_step on the list `rows` (out in list order) of a copy of
+    `state`; returns the copy."""
+    st = LMState(*(t.clone() for t in state))
+    idx = torch.as_tensor(np.asarray(rows, np.int32))
+    lm_step(cfg, st, torch.from_numpy(out[np.asarray(rows, int)]), idx,
+            count, torch.from_numpy(scaling), torch.from_numpy(n_points),
+            torch.from_numpy(bbox), torch.from_numpy(center), IMG_HW, init)
+    return st
+
+
+@pytest.mark.parametrize("model", list(FittingModel), ids=lambda m: m.name)
+def test_step_matches_jax_body(model):
+    cfg, arrays, out, scaling, n_points, bbox, center = _problem(model)
+    num_p = NUM_PARAMS[model]
+    rows = np.flatnonzero(arrays["active"])
+    got = _step(cfg, _port_state(arrays), out, scaling, n_points, bbox,
+                center, rows)
+
+    jcfg = _jax_cfg(cfg)
+    a = arrays
+    st = jeng._PackedState(
+        scal=jnp.asarray(np.stack([
+            a["lam"], a["chi_lg"], a["iteration"].astype(np.float32),
+            a["reached"].astype(np.float32), a["active"].astype(np.float32),
+            a["error"].astype(np.float32)])),
+        pvec=jnp.asarray(np.concatenate([a["p_cur"].T, a["p_lg"].T])),
+        ab=jnp.asarray(a["ab"].reshape(S, 64).T),
+        steps=jnp.int32(0),
+    )
+    level = _jax_level(bbox, center, n_points)
+    body = jeng._make_body(jcfg, _jax_stub(out, num_p), 8,
+                           jeng._make_oob(jcfg, level), jnp.asarray(scaling))
+    ref = jax.tree_util.tree_map(np.asarray, body(st))
+    scal = ref.scal
+
+    np.testing.assert_array_equal(got.error.numpy(), scal[5].astype(np.int32))
+    np.testing.assert_array_equal(got.iteration.numpy(),
+                                  scal[2].astype(np.int32))
+    np.testing.assert_array_equal(got.reached.numpy(),
+                                  scal[3].astype(np.int32))
+    np.testing.assert_array_equal(got.active.numpy(), scal[4] > 0)
+    np.testing.assert_array_equal(got.lam.numpy(), scal[0])
+    np.testing.assert_array_equal(got.ab.numpy().reshape(S, 64), ref.ab.T)
+    np.testing.assert_allclose(got.chi_lg.numpy(), scal[1], rtol=RTOL)
+    np.testing.assert_allclose(got.p_cur.numpy(), ref.pvec[:num_p].T,
+                               rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(got.p_lg.numpy(), ref.pvec[num_p:].T,
+                               rtol=RTOL, atol=1e-6)
+
+    # Every case did what its role says.
+    err = got.error.numpy()
+    assert err[SING_FRESH] == err[SING_CACHED] == ErrorCode.SOLVER
+    assert err[ERR_INSIDE] == ErrorCode.INTERPOLATION_OUT_OF_IMAGE
+    assert err[ERR_OUTSIDE] == ErrorCode.MODEL_OUT_OF_IMAGE
+    assert err[MAX_ITERS] == err[LAM_HIGH] == ErrorCode.MAX_ITERS_REACHED
+    assert err[INACTIVE2] == ErrorCode.SOLVER
+    assert got.lam[LAM_LOW] == np.float32(cfg.lambda_min)
+    assert got.lam[LAM_HIGH] == np.float32(cfg.lambda_max)
+    act = got.active.numpy()
+    assert act[[CONVERGE, DIVERGE]].all()
+    assert not act[[CONVERGED, MAX_ITERS, LAM_HIGH, SING_FRESH]].any()
+    assert err[CONVERGED] == ErrorCode.NONE
+    for row in (INACTIVE, INACTIVE2):
+        for name, t in got._asdict().items():
+            np.testing.assert_array_equal(t.numpy()[row], arrays[name][row],
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("model", list(FittingModel), ids=lambda m: m.name)
+def test_initial_step_matches_jax(monkeypatch, model):
+    """init=True against JAX's solve_level with its while loop taken out:
+    a normal row, an interpolation error inside and outside the image, an
+    empty subset (BAD_DOMAIN), a singular system (SOLVER), and skipped
+    rows, which the port leaves untouched."""
+    cfg, arrays, out, scaling, n_points, bbox, center = _problem(model, 5)
+    num_p = NUM_PARAMS[model]
+    start = LMState.start(cfg, torch.from_numpy(arrays["p_cur"]))
+    n_points[3] = 0.0
+    scaling[3] = 0.0
+    skip = np.zeros(S, bool)
+    skip[[6, 9]] = True
+    got = _step(cfg, start, out, scaling, n_points, bbox, center,
+                np.flatnonzero(~skip), init=True)
+
+    monkeypatch.setattr(jeng, "_make_assemble",
+                        lambda c, lv, st: (_jax_stub(out, num_p), 8))
+    monkeypatch.setattr(jax.lax, "while_loop", lambda cond, body, st: st)
+    jcfg = _jax_cfg(cfg)
+    ref = jeng.solve_level(jcfg, _jax_level(bbox, center, n_points),
+                           jnp.asarray(arrays["p_cur"]), jnp.asarray(skip))
+    ref = [np.asarray(a) for a in ref]
+    np.testing.assert_array_equal(got.error.numpy(), ref[3])
+    np.testing.assert_array_equal(got.init_fail.numpy(), ref[4])
+    np.testing.assert_array_equal(got.reached.numpy(), ref[2])
+    live = ~skip
+    np.testing.assert_allclose(got.chi_lg.numpy()[live], ref[1][live],
+                               rtol=RTOL)
+    np.testing.assert_allclose(got.p_cur.numpy()[live], ref[0][live],
+                               rtol=RTOL, atol=1e-6)
+    err = got.error.numpy()
+    assert err[3] == ErrorCode.BAD_DOMAIN
+    assert err[SING_FRESH] == ErrorCode.SOLVER
+    assert err[ERR_INSIDE] == ErrorCode.INTERPOLATION_OUT_OF_IMAGE
+    assert err[ERR_OUTSIDE] == ErrorCode.MODEL_OUT_OF_IMAGE
+    assert got.active.numpy().tolist() == (~got.init_fail.numpy()
+                                           & live).tolist()
+    np.testing.assert_array_equal(got.ab.numpy()[live], out[live])
+    for name, t in got._asdict().items():
+        np.testing.assert_array_equal(t.numpy()[skip],
+                                      start._asdict()[name].numpy()[skip],
+                                      err_msg=name)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("model", list(FittingModel), ids=lambda m: m.name)
+def test_listed_step_equals_whole_batch_step(model):
+    """A list in any order (with a device length past which the list
+    holds rows that must not be touched) equals the whole batch's step on
+    its rows bit for bit, NaN rows included, and leaves the rest alone."""
+    cfg, arrays, out, scaling, n_points, bbox, center = _problem(model, 7)
+    arrays["p_cur"][12] = np.nan
+    arrays["p_lg"][13] = np.inf
+    out[14, 0, 0] = np.nan
+    state = _port_state(arrays)
+    whole = _step(cfg, state, out, scaling, n_points, bbox, center,
+                  np.arange(S))
+    rows = np.random.default_rng(0).permutation(S)
+    listed, rest = rows[:9], rows[9:]
+    got = _step(cfg, state, out, scaling, n_points, bbox, center, rows,
+                count=torch.tensor([len(listed)], dtype=torch.int32))
+    for name, t in got._asdict().items():
+        want = whole._asdict()[name]
+        assert torch.equal(_bits(t[listed]), _bits(want[listed])), name
+        assert torch.equal(_bits(t[rest]), _bits(state._asdict()[name][rest])), name
+    empty = _step(cfg, state, out, scaling, n_points, bbox, center, rows,
+                  count=torch.zeros(1, dtype=torch.int32))
+    for name, t in empty._asdict().items():
+        assert torch.equal(_bits(t), _bits(state._asdict()[name])), name
+
+
+def test_constants_round_as_the_kernel_takes_them():
+    """The kernel gets precision and lambda_* as float32 (ctypes c_float,
+    round to nearest); PyTorch rounds a Python scalar against a float32
+    tensor the same way before the operation, for the products, clamps,
+    sums and comparisons of the step."""
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy((rng.uniform(-1, 1, 200_000)
+                          * 10.0 ** rng.integers(-12, 12, 200_000))
+                         .astype(np.float32))
+    cfg = SolverConfig()
+    for c in (cfg.precision, cfg.lambda_min, cfg.lambda_max, cfg.lambda_up,
+              cfg.lambda_down):
+        c32 = torch.tensor(np.float32(c))
+        assert torch.equal(t * c, t * c32)
+        assert torch.equal(t + c, t + c32)
+        assert torch.equal(torch.clamp(t, min=c), torch.maximum(t, c32))
+        assert torch.equal(torch.clamp(t, max=c), torch.minimum(t, c32))
+        assert torch.equal(t < c, t < c32) and torch.equal(t >= c, t >= c32)
+    assert not torch.equal(t * cfg.lambda_down,
+                           (t.double() * cfg.lambda_down).float())
+
+
+def test_active_list_on_the_device():
+    mask = torch.tensor([0, 1, 1, 0, 1, 0, 0, 1], dtype=torch.bool)
+    idx, count = engine.active_list(mask, True)
+    assert idx.dtype == count.dtype == torch.int32
+    assert count.tolist() == [4] and idx[:4].tolist() == [1, 2, 4, 7]
+    assert sorted(idx.tolist()) == list(range(8))
+    host, none = engine.active_list(mask, False)
+    assert none is None and host.tolist() == [1, 2, 4, 7]
+    assert engine._empty_list(*engine.active_list(mask & False, True))
+    assert not engine._empty_list(idx, count)
+
+
+def _k1_args(s=6, side=9, seed=2):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 255, (60, 70, 1))
+                           .astype(np.float32))
+    xy = []
+    for i in range(s):
+        cx, cy = 15 + 7 * i, 20 + 4 * i
+        gx, gy = np.meshgrid(np.arange(cx - side // 2, cx + side // 2 + 1),
+                             np.arange(cy - side // 2, cy + side // 2 + 1),
+                             indexing="ij")
+        xy.append(np.stack([gx.ravel(), gy.ravel()], -1))
+    xy = torch.from_numpy(np.stack(xy).astype(np.float32))
+    mask = torch.ones(xy.shape[:2], dtype=torch.bool)
+    center = xy.mean(dim=1)
+    und = img[xy[..., 1].long(), xy[..., 0].long()]
+    pix = v2.pack_pixels(xy, mask, und, center)
+    params = torch.from_numpy((rng.normal(size=(s, 6)) * 0.02 + [0.6, -0.3,
+                               0, 0, 0, 0]).astype(np.float32))
+    th, tw = v2.choose_tile(side - 1, side - 1, 64, 72)
+    return (FittingModel.AFFINE, Interpolation.BICUBIC, th, tw, 60, 70,
+            v2.prepare_image(img, th, tw), pix, center, params,
+            v2.subset_bbox(xy, mask))
+
+
+@pytest.mark.parametrize("count", [0, 1, 4, 6])
+def test_fused_assembly_takes_a_device_length(count):
+    """The plain version with count assembles idx[:count] exactly as with
+    that list, and returns zero rows past it."""
+    args = _k1_args()
+    idx = torch.tensor([4, 1, 5, 0, 2, 3], dtype=torch.int32)
+    got = v2.fused_assemble(*args, idx,
+                            torch.tensor([count], dtype=torch.int32))
+    assert got.shape == (6, 8, 8)
+    assert torch.equal(got[:count], v2.fused_assemble(*args, idx[:count]))
+    assert not got[count:].any()
+
+
+def _oracle_problem():
+    from synthetic import Speckle
+
+    spk = Speckle(72, 70, seed=23)
+    und = np.floor(spk.image())
+    dfm = np.floor(spk.warped_image(u=0.9, v=0.7))
+    grids = [(16, 16, 32, 34), (36, 20, 52, 36), (24, 40, 44, 56)]
+    subsets = [np.stack(np.meshgrid(np.arange(x0, x1 + 1),
+                                    np.arange(y0, y1 + 1), indexing="ij"),
+                        -1).reshape(-1, 2).astype(np.float32)
+               for x0, y0, x1, y1 in grids]
+    return und, dfm, subsets
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    from correlation_tpu.ops import assemble_v2 as jv2
+
+    orig = jv2.pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jv2.pl, "pallas_call", patched)
+    jv2.fused_assemble.clear_cache()
+    yield
+    jv2.fused_assemble.clear_cache()
+
+
+def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
+                                                      pallas_interpret):
+    """tests/test_engine.py's oracle case (UV / BICUBIC, level 0): the
+    loop run for its whole budget of max_iterations + 2 iterations, as on
+    the card, whose late lists are empty, equals the loop that stops at
+    the first empty list bit for bit, and both equal JAX's Pallas solve
+    (iterations and codes exactly, parameters 5e-5, chi 5e-5 relative,
+    test_torch_engine.py's tolerances)."""
+    from correlation_tpu.config import Interpolation as JInterp
+    from correlation_tpu.config import PyramidConfig as JPyramid
+    from correlation_tpu.domains import make_batch as jax_make_batch
+    from correlation_tpu.ops.pyramid import build_pyramid as jax_pyramid
+    from correlation_tpu_torch.config import PyramidConfig
+    from correlation_tpu_torch.domains import make_batch
+
+    und, dfm, subsets = _oracle_problem()
+    guesses = np.full((3, 2), 0.5, np.float32)
+    jcfg = JSolver(model=JModel.UV, interpolation=JInterp.BICUBIC,
+                   pyramid=JPyramid(0, 1, 0), backend="pallas")
+    cfg = SolverConfig(model=FittingModel.UV,
+                       interpolation=Interpolation.BICUBIC,
+                       pyramid=PyramidConfig(0, 1, 0), backend="torch")
+    und_pyr = jax_pyramid(jnp.asarray(und[..., None], jnp.float32), 0)
+    def_pyr = jax_pyramid(jnp.asarray(dfm[..., None], jnp.float32), 0)
+    ref = jeng.correlate(jcfg, und_pyr, def_pyr,
+                         jax_make_batch(subsets, None, 0), guesses)
+
+    def solve():
+        return engine.correlate(cfg, [np.asarray(a) for a in und_pyr],
+                                [np.asarray(a) for a in def_pyr],
+                                make_batch(subsets, None, 0), guesses,
+                                device="cpu")
+
+    steps = []
+    orig_step = engine.lm_step
+
+    def counted(*args, **kwargs):
+        steps.append(int(args[4][0]) if args[4] is not None else None)
+        return orig_step(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "lm_step", counted)
+    early = solve()
+    n_early = len(steps)
+    steps.clear()
+    monkeypatch.setattr(engine, "_empty_list",
+                        lambda idx, count: False if count is not None
+                        else idx.numel() == 0)
+    budget = solve()
+    assert n_early < len(steps) == cfg.max_iterations + 3
+    assert steps[-1] == 0  # the budget's late lists are empty
+    for a, b in zip(early, budget):
+        assert torch.equal(_bits(a), _bits(b))
+    np.testing.assert_array_equal(budget.error.numpy(), np.asarray(ref.error))
+    np.testing.assert_array_equal(budget.iterations.numpy(),
+                                  np.asarray(ref.iterations))
+    np.testing.assert_allclose(budget.params.numpy(), np.asarray(ref.params),
+                               atol=5e-5)
+    np.testing.assert_allclose(budget.chi.numpy(), np.asarray(ref.chi),
+                               rtol=5e-5)
+
+
+def test_no_kernel_launcher_synchronises():
+    """The LM loop enqueues without a host sync only if the launchers in
+    the kernel library wait for nothing: none calls a synchronising CUDA
+    function (CUDA's sync debug mode does not see inside the library)."""
+    from correlation_tpu_torch.ops import _build
+
+    names = [src.name for src in _build._SOURCES]
+    assert "lm_step.cu" in names and "fused_assemble.cu" in names
+    assert _build.synchronising_calls() == {}
+    assert "cudaMemcpy(" in _build.SYNC_CALLS

@@ -163,6 +163,50 @@ def test_stop_at_each_poll_matches_jax(tmp_path, k):
     assert_same_records(ref, got)
 
 
+def test_stop_with_a_chunk_in_flight_matches_jax(monkeypatch, tmp_path):
+    """The chunked loop dispatches chunk i + 1 before it fetches and emits
+    chunk i, as JAX's does.  5 pairs in chunks of 2: the third poll, before
+    chunk 0's second record, stops the run while chunk 1 is in flight;
+    chunk 1 is dropped, and both packages keep chunk 0's first record and
+    write the same checkpoint."""
+    frames = drift_frames(6, 1.3, -0.8)
+    pts = sectors(CENTERS)
+    events = []
+    dispatch = tseq.correlate_frames
+
+    def spy(*args, **kwargs):
+        events.append("dispatch")
+        return dispatch(*args, **kwargs)
+
+    monkeypatch.setattr(tseq, "correlate_frames", spy)
+    runs = {}
+    for writer in ("jax", "port"):
+        calls = []
+
+        def should_stop():
+            calls.append(1)
+            return len(calls) >= 3
+
+        path = str(tmp_path / f"{writer}.npz")
+        kw = dict(should_stop=should_stop, checkpoint_path=path,
+                  on_frame=lambda rec: events.append(("emit", rec.frame)))
+        if writer == "jax":
+            with pallas_interpret():
+                recs = jseq.run_sequence(frames, pts, _jax_cfg(frame_chunk=2),
+                                         **kw)
+            events.clear()
+        else:
+            recs = tseq.run_sequence(frames, pts, _port_cfg(frame_chunk=2),
+                                     device="cpu", **kw)
+        runs[writer] = (recs, ckpt.load_checkpoint(path)[0], len(calls))
+    assert events == ["dispatch", "dispatch", ("emit", 0)]
+    (ref, ref_next, ref_calls), (got, got_next, got_calls) = (
+        runs["jax"], runs["port"])
+    assert len(got) == 1 and got_next == ref_next == 1
+    assert got_calls == ref_calls == 3
+    assert_same_records(ref, got)
+
+
 def test_checkpoint_round_trip_keeps_every_field(lagr_runs, tmp_path):
     _, (_, got) = lagr_runs
     state = tseq.initial_track_state(
