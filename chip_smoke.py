@@ -20,9 +20,15 @@ Phases, one informational line each:
      NaN), on 4096 subsets of every branch (problems.lm_step_problem:
      NaN and out-of-image rows among them), four models x both modes,
      through a shuffled list whose last quarter lies past its device
-     length and must stay untouched; and K1 with the list's length on the
-     device at the dense grid's three levels against its plain version on
-     idx[:count], counts 0, 1, 30% and all;
+     length and must stay untouched, the next list it writes equal to the
+     plain version's; its next lists over problems.lm_step_list's lists
+     (whole, with gaps, sparse across the grid's blocks, the last subset
+     alone) at 1, 37, 4099 and 16384 subsets, with every row's role,
+     every subset stopping and none stopping, equal to the plain
+     version's and to engine.active_list of the flags the step leaves;
+     and K1 with the list's length on the device at the dense grid's
+     three levels against its plain version on idx[:count], counts 0, 1,
+     30% and all;
   4. pyramid: the pyramid built on the card equals the CPU pyramid;
   5. slice: correlate_frames on the dense-grid problem (4096 21x21
      subsets, AFFINE/BICUBIC, levels 2-1-0, 64 chained frame pairs) on
@@ -33,15 +39,18 @@ Phases, one informational line each:
      and the guesses staged on the card first and the chunk enqueued
      under CUDA's sync debug mode "error" (any host sync raises), the
      LM-step kernel launched for the initial step and max_iterations + 2
-     iterations at every level of every pair, and no kernel launcher
-     calling a synchronising CUDA function (read from the sources); then
+     iterations at every level of every pair, active_list called once a
+     level of every pair (the step writes the later lists), and no
+     kernel launcher calling a synchronising CUDA function (read from
+     the sources); then
      the first 256 subsets for 2 frames through the plain version on the
      CPU;
   6. time: the 64-frame chunk after a warm-up, and one assembly per level
      by the kernel (replayed from a CUDA graph, and called eagerly through
      its wrapper) and by the plain version; the LM-step kernel on 4096
-     AFFINE subsets from a CUDA graph, its plain version, and lm_delta
-     alone from a graph (its yardstick);
+     and 16384 AFFINE subsets from a CUDA graph, from HBM, as the loop
+     launches it (device length, next list) and on a host list, its
+     plain version, and lm_delta alone from a graph (its yardstick);
   7. experiment kernels: the entry points of experiments.exp_gather and
      experiments.exp_matmul_overhead at the JAX scripts' sizes, then each
      kernel against its plain version (the gather bit for bit, the stages
@@ -130,7 +139,8 @@ Phases, one informational line each:
  14. profile: experiments.profile_bench at full size (correlate,
      prepare_levels, solve_level per level with its host issue, K1
      chained per level, lm_delta, the LM-step kernel, an iteration whose
-     list is empty, solve_level with the assembly stubbed, the busy share
+     list is empty as the loop issues it and with active_list before it,
+     solve_level with the assembly stubbed, the busy share
      of an 8-pair chunk under torch.profiler), every time finite and
      positive.
 Then a JSON line with the kernel records (K1 at each level of the dense
@@ -155,6 +165,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 FRAMES = 64
 NUM_SUBSETS = 4096
+DENSE_SUBSETS = 16384  # bench.py --dense
 CPU_SUBSETS = 256
 SEQ_PAIRS = 32
 STRICT_PAIRS = 4
@@ -234,25 +245,59 @@ def lm_step_cases(torch, dev, v2, level_args):
     problems.lm_step_problem's NUM_SUBSETS subsets (every branch, NaN and
     out-of-image rows), four models x both modes, through a shuffled list
     of every subset whose last quarter lies past the device length, which
-    must stay untouched; then K1 with the list's length on the device
-    (active_list of a random 30% mask) at each dense-grid level against
-    its plain version on idx[:count], counts 0, 1, the mask's and all.
-    Returns (case names, max |kernel - plain| over finite entries)."""
+    must stay untouched, the next list (in the shuffled order) equal to
+    the plain version's; then, AFFINE in both modes and the four models
+    in step mode, problems.lm_step_list's lists (every subset, 60% with
+    gaps, 3%, the last alone) at 1, 37, 4099 and 16384 subsets, with
+    every row's role, every subset stopping and none stopping: state,
+    next list and count equal to the plain version's and the list equal
+    to engine.active_list of the flags the step leaves; then K1 with the
+    list's length on the device (active_list of a random 30% mask) at
+    each dense-grid level against its plain version on idx[:count],
+    counts 0, 1, the mask's and all.  Returns (case names, max |kernel -
+    plain| over finite entries)."""
+    import numpy as np
+
     from correlation_tpu_torch.config import FittingModel
     from correlation_tpu_torch.engine import active_list
     from correlation_tpu_torch.ops import solve
-    from correlation_tpu_torch.problems import lm_step_problem
+    from correlation_tpu_torch.problems import (
+        LM_STEP_LISTS,
+        lm_step_list,
+        lm_step_problem,
+    )
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
 
     names, worst = [], 0.0
+
+    def compare(what, state, got, ref, untouched=None):
+        nonlocal worst
+        for name, a in got._asdict().items():
+            b = ref._asdict()[name]
+            check(same_bits(torch, a, b),
+                  f"{what}: {name} differs from the plain version")
+            if untouched is not None:
+                check(same_bits(torch, a[untouched],
+                                state._asdict()[name][untouched]),
+                      f"{what}: {name} changed past the list's length")
+            if a.dtype == torch.float32:
+                fin = torch.isfinite(a) & torch.isfinite(b)
+                if fin.any():
+                    worst = max(worst, float((a - b)[fin].abs().max()))
+
+    def outputs(s):
+        return ([torch.full((s,), -9, dtype=torch.int32, device=dev)
+                 for _ in range(2)],
+                [torch.full((1,), -9, dtype=torch.int32, device=dev)
+                 for _ in range(2)])
+
     listed = 3 * NUM_SUBSETS // 4
     for model in FittingModel:
         for init in (False, True):
             cfg, arrays, out, *rest, img_hw = lm_step_problem(
                 model, NUM_SUBSETS, seed=int(model))
-
-            def t(a):
-                return torch.as_tensor(a, device=dev)
-
             state = solve.LMState(**{k: t(v) for k, v in arrays.items()})
             perm = torch.randperm(
                 NUM_SUBSETS,
@@ -262,23 +307,61 @@ def lm_step_cases(torch, dev, v2, level_args):
                     *(t(a) for a in rest), img_hw, init)
             got = solve.LMState(*(a.clone() for a in state))
             ref = solve.LMState(*(a.clone() for a in state))
-            solve.lm_step(cfg, got, *args)
-            solve.lm_step_reference(cfg, ref, *args)
+            nxt, cnt = outputs(NUM_SUBSETS)
+            solve.lm_step(cfg, got, *args, nxt[0], cnt[0])
+            solve.lm_step_reference(cfg, ref, *args, nxt[1], cnt[1])
             torch.cuda.synchronize()
             what = f"lm_step {model.name} {'init' if init else 'step'}"
-            untouched = perm[listed:]
-            for name, a in got._asdict().items():
-                b = ref._asdict()[name]
-                check(same_bits(torch, a, b),
-                      f"{what}: {name} differs from the plain version")
-                check(same_bits(torch, a[untouched],
-                                state._asdict()[name][untouched]),
-                      f"{what}: {name} changed past the list's length")
-                if a.dtype == torch.float32:
-                    fin = torch.isfinite(a) & torch.isfinite(b)
-                    if fin.any():
-                        worst = max(worst, float((a - b)[fin].abs().max()))
-            names.append(f"{what} ({NUM_SUBSETS} subsets, {listed} listed)")
+            compare(what, state, got, ref, perm[listed:])
+            check(torch.equal(cnt[0], cnt[1]) and torch.equal(nxt[0], nxt[1]),
+                  f"{what}: the next list differs from the plain version's")
+            names.append(f"{what} ({NUM_SUBSETS} subsets, {listed} listed, "
+                         f"{int(cnt[0])} kept)")
+    lists = 0
+    for model in FittingModel:
+        for init in ((False, True) if model == FittingModel.AFFINE
+                     else (False,)):
+            for s in (1, 37, 4099, 16384):
+                for stop in (None, "none", "all"):
+                    cfg, arrays, out, *rest, img_hw = lm_step_problem(
+                        model, s, seed=s, stop=stop)
+                    for kind in LM_STEP_LISTS:
+                        idx, n = lm_step_list(s, kind, seed=s + int(model))
+                        arrays["active"] = (np.isin(np.arange(s), idx[:n])
+                                            & (not init))
+                        state = solve.LMState(**{k: t(v) for k, v
+                                                 in arrays.items()})
+                        args = (t(out[np.minimum(idx, s - 1)]), t(idx),
+                                t(np.int32([n])), *(t(a) for a in rest),
+                                img_hw, init)
+                        got = solve.LMState(*(a.clone() for a in state))
+                        ref = solve.LMState(*(a.clone() for a in state))
+                        nxt, cnt = outputs(s)
+                        solve.lm_step(cfg, got, *args, nxt[0], cnt[0])
+                        solve.lm_step_reference(cfg, ref, *args, nxt[1],
+                                                cnt[1])
+                        torch.cuda.synchronize()
+                        what = (f"lm_step {model.name} "
+                                f"{'init' if init else 'step'} {s} subsets, "
+                                f"list {kind}, stop {stop}")
+                        compare(what, state, got, ref)
+                        want, want_n = active_list(got.active, True)
+                        k = int(cnt[0])
+                        check(torch.equal(cnt[0], cnt[1])
+                              and torch.equal(nxt[0], nxt[1]),
+                              f"{what}: the next list differs from the "
+                              "plain version's")
+                        check(k == int(want_n)
+                              and torch.equal(nxt[0][:k], want[:k]),
+                              f"{what}: the next list is not active_list's")
+                        check(stop != "all" or k == 0,
+                              f"{what}: {k} kept where all stop")
+                        check(stop != "none" or k == n,
+                              f"{what}: {n - k} stopped where none does")
+                        lists += 1
+    names.append(f"lm_step next lists: {lists} cases (U/UV/UVQ step, AFFINE "
+                 "step and init; 1, 37, 4099, 16384 subsets; lists "
+                 f"{'/'.join(LM_STEP_LISTS)}; roles, none stop, all stop)")
     gen = torch.Generator().manual_seed(5)
     for lvl, args in sorted(level_args.items()):
         mask = (torch.rand(NUM_SUBSETS, generator=gen) < 0.3).to(dev)
@@ -298,11 +381,16 @@ def lm_step_cases(torch, dev, v2, level_args):
 
 def lm_step_record(torch, dev, launches, max_err):
     """The LM-step kernel's JSON record: on problems.lm_step_problem's
-    NUM_SUBSETS AFFINE subsets, the whole list, the kernel replayed from a
-    CUDA graph over copies of its inputs and state that the L2 cannot hold
-    together (graph_ms_cold: each step reads them from HBM), its plain
-    version eager, and as the nearest yardstick ops/solve.lm_delta from a
-    CUDA graph (no single PyTorch call computes the step).
+    NUM_SUBSETS AFFINE subsets, the whole list with its length on the
+    device and the next list written, as the LM loop launches it, the
+    kernel replayed from a CUDA graph over copies of its inputs and state
+    that the L2 cannot hold together (graph_ms_cold: each step reads them
+    from HBM), its plain version eager, and as the nearest yardstick
+    ops/solve.lm_delta from a CUDA graph (no single PyTorch call computes
+    the step).  Beside them, the same from HBM at 16384 subsets (bench.py's
+    dense shape) and, at both sizes, the kernel on a host list without an
+    output list (the separable and field paths' form), which leaves out
+    the scan across blocks.
 
     The bound counts the bytes a step of this data moves, each once:
     for every listed subset its list entry, its 64-float assembly,
@@ -311,11 +399,13 @@ def lm_step_record(torch, dev, launches, max_err):
     center only where the assembly reports an interpolation error (the
     out-of-image test); the completed-iterations count only where the
     subset steps; the cached Gram once where it is read (a diverging
-    step) or written (an accepted one), which are never both.  n_points
-    and init_fail are not touched outside the initial step.  A subset
-    that does not step keeps its state, and one that steps stays on the
-    same side (an accepted step makes the next converge on the same
-    assembly), so every replay moves what the first does."""
+    step) or written (an accepted one), which are never both; the list's
+    length read, and the next list's kept entries and its length
+    written.  n_points and init_fail are not touched outside the initial
+    step.  A subset that does not step keeps its state, and one that
+    steps stays on the same side (an accepted step makes the next
+    converge on the same assembly), so every replay moves what the first
+    does."""
     from correlation_tpu_torch.config import FittingModel
     from correlation_tpu_torch.ops import solve
     from correlation_tpu_torch.problems import lm_step_problem
@@ -325,54 +415,84 @@ def lm_step_record(torch, dev, launches, max_err):
         graph_ms_cold,
     )
 
-    cfg, arrays, out, *rest, img_hw = lm_step_problem(FittingModel.AFFINE,
-                                                      NUM_SUBSETS)
-    state = solve.LMState(**{k: torch.as_tensor(v, device=dev)
-                             for k, v in arrays.items()})
-    out, scaling, n_points, bbox, center = (torch.as_tensor(a, device=dev)
-                                            for a in (out, *rest))
-    idx = torch.arange(NUM_SUBSETS, dtype=torch.int32, device=dev)
-    args = (out, idx, None, scaling, n_points, bbox, center, img_hw)
+    def measure(n):
+        cfg, arrays, out, *rest, img_hw = lm_step_problem(
+            FittingModel.AFFINE, n)
+        state = solve.LMState(**{k: torch.as_tensor(v, device=dev)
+                                 for k, v in arrays.items()})
+        out, scaling, n_points, bbox, center = (
+            torch.as_tensor(a, device=dev) for a in (out, *rest))
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        count = torch.tensor([n], dtype=torch.int32, device=dev)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt_count = torch.empty(1, dtype=torch.int32, device=dev)
+        args = (out, idx, count, scaling, n_points, bbox, center, img_hw,
+                False)
+        num_p = cfg.num_params
+
+        after = solve.LMState(*(x.clone() for x in state))
+        solve.lm_step_reference(cfg, after, *args)
+        err_now = out[:, num_p + 1, num_p + 1] > 0
+        diverging = ~(out[:, num_p, num_p] * scaling <= state.chi_lg)
+        stepped = after.iteration != state.iteration
+        kept = int(after.active.sum())
+        every = (idx.element_size() + 64 * out.element_size()
+                 + scaling.element_size()
+                 + 2 * sum(x[0].numel() * x.element_size()
+                           for x in (state.p_cur, state.p_lg, state.lam,
+                                     state.chi_lg, state.iteration,
+                                     state.error))
+                 + state.active.element_size())
+        moved = (n * every
+                 + int(err_now.sum()) * (bbox[0].numel() * bbox.element_size()
+                                         + center[0].numel()
+                                         * center.element_size())
+                 + int(stepped.sum()) * state.reached.element_size()
+                 + int((diverging | stepped).sum())
+                 * state.ab[0].numel() * state.ab.element_size())
+        listed = (moved + count.element_size() + kept * nxt.element_size()
+                  + nxt_count.element_size())
+
+        def step(*c):
+            solve.lm_step(cfg, solve.LMState(*c[:10]), *c[10:13], *c[13:17],
+                          img_hw, False, *c[17:])
+
+        def host_step(*c):
+            solve.lm_step(cfg, solve.LMState(*c[:10]), c[10], c[11], None,
+                          *c[12:16], img_hw)
+
+        inputs = (*state, out, idx, count, scaling, n_points, bbox, center)
+        ms = graph_ms_cold(step, (*inputs, nxt, nxt_count))
+        host_ms = graph_ms_cold(host_step, inputs[:12] + inputs[13:])
+        return dict(cfg=cfg, state=state, out=out, args=args, ms=ms,
+                    host_ms=host_ms, moved=listed, host_moved=moved,
+                    kept=kept, stepped=int(stepped.sum()),
+                    diverging=int(diverging.sum()),
+                    err_now=int(err_now.sum()))
+
+    m = measure(NUM_SUBSETS)
+    big = measure(DENSE_SUBSETS)
+    cfg, state, out, args = m["cfg"], m["state"], m["out"], m["args"]
     num_p = cfg.num_params
-
-    after = solve.LMState(*(x.clone() for x in state))
-    solve.lm_step_reference(cfg, after, *args)
-    err_now = out[:, num_p + 1, num_p + 1] > 0
-    diverging = ~(out[:, num_p, num_p] * scaling <= state.chi_lg)
-    stepped = after.iteration != state.iteration
-    n = NUM_SUBSETS
-    every = (idx.element_size() + 64 * out.element_size()
-             + scaling.element_size()
-             + 2 * sum(x[0].numel() * x.element_size()
-                       for x in (state.p_cur, state.p_lg, state.lam,
-                                 state.chi_lg, state.iteration, state.error))
-             + state.active.element_size())
-    moved = (n * every
-             + int(err_now.sum()) * (bbox[0].numel() * bbox.element_size()
-                                     + center[0].numel()
-                                     * center.element_size())
-             + int(stepped.sum()) * state.reached.element_size()
-             + int((diverging | stepped).sum())
-             * state.ab[0].numel() * state.ab.element_size())
-    bound_ms, bound_by = bound(moved)
-
-    def step(*c):
-        solve.lm_step(cfg, solve.LMState(*c[:10]), c[10], c[11], None,
-                      *c[12:], img_hw)
-
-    ms = graph_ms_cold(step, (*state, out, idx, scaling, n_points, bbox,
-                              center))
+    bound_ms, bound_by = bound(m["moved"])
+    big_bound, _ = bound(big["moved"])
     plain_ms = cuda_time_ms(lambda: solve.lm_step_reference(cfg, state, *args),
                             5)
     a = out[:, :num_p, :num_p]
     b = out[:, :num_p, num_p].contiguous()
+    scaling = args[3]
     yard_ms = graph_ms(lambda: solve.lm_delta(a, b, state.lam, scaling), 20)
-    print(f"lm_step: {n} AFFINE subsets ({int(stepped.sum())} step, "
-          f"{int(diverging.sum())} diverge, {int(err_now.sum())} with an "
-          f"interpolation error), kernel {ms:.4f} ms (graph, from HBM), "
-          f"plain {plain_ms:.4f} ms (eager), lm_delta {yard_ms:.4f} ms "
-          f"(graph); bound {moved / 1e6:.3f} MB -> {bound_ms:.5f} ms "
-          f"({bound_by}), kernel at {bound_ms / ms:.1%} of it")
+    for n, r, bnd in ((NUM_SUBSETS, m, bound_ms), (DENSE_SUBSETS, big,
+                                                    big_bound)):
+        print(f"lm_step: {n} AFFINE subsets ({r['stepped']} step, "
+              f"{r['diverging']} diverge, {r['err_now']} with an "
+              f"interpolation error, {r['kept']} kept in the next list), "
+              f"kernel {r['ms']:.4f} ms (graph, from HBM; on a host list, "
+              f"without the next list: {r['host_ms']:.4f} ms); bound "
+              f"{r['moved'] / 1e6:.3f} MB -> {bnd:.5f} ms (bytes), kernel "
+              f"at {bnd / r['ms']:.1%} of it")
+    print(f"lm_step: plain {plain_ms:.4f} ms (eager), lm_delta "
+          f"{yard_ms:.4f} ms (graph), at {NUM_SUBSETS} subsets")
     return {
         "name": "lm_step",
         "route": "cuda",
@@ -381,7 +501,7 @@ def lm_step_record(torch, dev, launches, max_err):
                     "not a Pallas kernel)",
         "launches": launches,  # phase 5's
         "max_abs_err": max_err,
-        "ms": ms,
+        "ms": m["ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -389,6 +509,10 @@ def lm_step_record(torch, dev, launches, max_err):
         "library_ms": None,
         "yardstick": "ops/solve.lm_delta alone, from a CUDA graph",
         "yardstick_ms": yard_ms,
+        "ms_host_list": m["host_ms"],
+        f"ms_{DENSE_SUBSETS}": big["ms"],
+        f"bound_ms_{DENSE_SUBSETS}": big_bound,
+        f"ms_host_list_{DENSE_SUBSETS}": big["host_ms"],
     }
 
 
@@ -1770,6 +1894,7 @@ def main() -> int:
     import numpy as np
 
     from correlation_tpu_torch import config as cfgmod
+    from correlation_tpu_torch import engine
     from correlation_tpu_torch.domains import SubsetBatch
     from correlation_tpu_torch.engine import correlate_frames
     from correlation_tpu_torch.ops import _build
@@ -1867,6 +1992,15 @@ def main() -> int:
     torch.cuda.synchronize()
     v2.reset_launches()
     lm.reset_launches()
+    # active_list builds a level's first list; the LM step writes the rest.
+    sorts = []
+    orig_list = engine.active_list
+
+    def counted_list(mask, on_device):
+        sorts.append(on_device)
+        return orig_list(mask, on_device)
+
+    engine.active_list = counted_list
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1875,6 +2009,7 @@ def main() -> int:
         issue_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        engine.active_list = orig_list
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = v2.LAUNCHES
@@ -1884,6 +2019,9 @@ def main() -> int:
           f"the LM-step kernel launched {step_launches} times, not the "
           f"initial step and {cfg.max_iterations + 2} iterations at every "
           "level of every pair")
+    check(sorts == [True] * FRAMES * levels_n,
+          f"active_list ran {len(sorts)} times (device lists: "
+          f"{sum(sorts)}), not once a level of every pair")
     # [launches, subsets assembled] of each level's shape
     by_level = {lvl: list(v2.LAUNCHES_BY_SHAPE.get(
         (a[7].shape[2], a[2], a[3]), [0, 0])) for lvl, a in level_args.items()}
@@ -1924,7 +2062,8 @@ def main() -> int:
           f"sync debug mode \"error\": no host sync), {launches} K1 launches ("
           + ", ".join(f"L{lvl} {k}, list capacity {m / k:.1f} a launch"
                       for lvl, (k, m) in sorted(by_level.items()))
-          + f"), {step_launches} LM-step launches; launchers free of "
+          + f"), {step_launches} LM-step launches, {len(sorts)} "
+          f"active_list calls; launchers free of "
           f"{', '.join(_build.SYNC_CALLS[:3])}; "
           f"hard-error fraction {hard}; median (u, v) = ({med_u:.5f}, "
           f"{med_v:.5f}); card vs CPU plain ({CPU_SUBSETS} subsets x 2 "

@@ -30,18 +30,20 @@ tiled assembly for up to 3 channels and the separable one above, as JAX's
 
 The LM loop stays on the device.  JAX runs the LM iterations in a
 lax.while_loop, whose stop test never leaves the device, and shrinks the
-batch with a compaction cascade.  Here each iteration builds the list of
-the still-active subsets on the device (active_list: a stable sort of the
-active flags and their sum, no host read), the fused assembly kernel
-reads its subsets through the list and its length from the device, and
-the LM-step kernel (ops/solve.lm_step) updates exactly the listed rows;
-the positions past the list's length exit at once, which does the
-cascade's job.  So on the card a level enqueues its initial step and the
-JAX loop's step bound of max_iterations + 2 iterations without one host
-sync, and a chained chunk of frame pairs (correlate_frames) enqueues whole,
-from the staged stack to the packed result.  A subset's trajectory
-depends on its own state alone, so this is the same arithmetic as the JAX
-loop (whose compaction is tested bit-identical to the monolithic loop).
+batch with a compaction cascade.  Here the list of the still-active
+subsets stays on the device: a level's first list is a stable sort of
+its flags and their sum (active_list, no host read), the fused assembly
+kernel reads its subsets through the list and its length from the
+device, and the LM-step kernel (ops/solve.lm_step) updates exactly the
+listed rows and writes the next list, the listed subsets still active,
+in the same launch; the positions past the list's length exit at once,
+which does the cascade's job.  So on the card a level enqueues its
+initial step and the JAX loop's step bound of max_iterations + 2
+iterations without one host sync, and a chained chunk of frame pairs
+(correlate_frames) enqueues whole, from the staged stack to the packed
+result.  A subset's trajectory depends on its own state alone, so this
+is the same arithmetic as the JAX loop (whose compaction is tested
+bit-identical to the monolithic loop).
 The separable and field assemblies, plain torch over the list, cannot
 exit early: they take a host list (torch.nonzero, one sync an iteration)
 and stop at the first empty one, through the same LM step.
@@ -165,6 +167,9 @@ def active_list(mask: torch.Tensor, on_device: bool):
     an int32 [1] tensor on mask's device: no operation reads it on the
     host, so nothing waits for the device.  Else idx lists exactly those
     subsets (torch.nonzero, which waits for the device) and count is None.
+    solve_level builds a device list once a level, for the initial step;
+    the LM step writes every later one.  The host lists of the separable
+    and field assemblies are built every iteration.
     """
     if on_device:
         idx = torch.argsort(mask.view(torch.uint8), descending=True,
@@ -196,15 +201,18 @@ def solve_level(
     are not meaningful and are not read by correlate_prepared); static:
     the level's tile dims (the tiled and separable assemblies only).
 
-    Each LM iteration is: the list of the still-active subsets
-    (active_list), their assembly, and ops/solve.lm_step on them, as the
-    initial step is on the subsets not skipped.  On the fused assembly the
-    list stays on the device, so on the card the level's initial step and
-    max_iterations + 2 iterations (the JAX loop's step bound) enqueue
-    without one host read, an iteration past the last active subset
-    costing launches that exit at once; on the CPU the loop stops at the
-    first empty list.  The separable and field assemblies, plain torch
-    over the list, take a host list instead (one sync an iteration) and
+    Each LM iteration is: the list of the still-active subsets, their
+    assembly, and ops/solve.lm_step on them, as the initial step is on the
+    subsets not skipped.  On the fused assembly the list stays on the
+    device: active_list builds the initial step's list once, and each
+    step writes the next list into the other of two buffers (and counts)
+    that alternate, so the host always knows which is current without a
+    read.  On the card the level's initial step and max_iterations + 2
+    iterations (the JAX loop's step bound) enqueue without one host read,
+    an iteration past the last active subset costing two launches that
+    exit at once; on the CPU the loop stops at the first empty list.  The
+    separable and field assemblies, plain torch over the list, take a
+    host list instead (active_list every iteration, one sync each) and
     stop at the first empty one.  The results are the same.
     """
     assemble, device_list = _make_assemble(cfg, level, static)
@@ -214,19 +222,33 @@ def solve_level(
     state = LMState.start(cfg, params0)
     bbox, center = level.bbox.contiguous(), level.center.contiguous()
 
-    def step(mask, init):
-        idx, count = active_list(mask, device_list)
+    def step(idx, count, init, nxt=(None, None)):
         if _empty_list(idx, count):
             return False
         out = assemble(state.p_cur, idx, count)
         lm_step(cfg, state, out, idx, count, scaling, n_points, bbox, center,
-                level.img_hw, init)
+                level.img_hw, init, *nxt)
         return True
 
-    step(~skip, True)  # the initial assembly at the initial guess
-    for _ in range(cfg.max_iterations + 2):  # the JAX loop's step bound
-        if not step(state.active, False):
-            break
+    steps = cfg.max_iterations + 3  # the initial step and JAX's step bound
+    if device_list:
+        # Entries past a list's count stay valid subset indices (zero, or
+        # an older list's), which the CPU assembly checks.
+        lists = torch.zeros((2, params0.shape[0]), dtype=torch.int32,
+                            device=params0.device)
+        counts = torch.empty((2, 1), dtype=torch.int32,
+                             device=params0.device)
+        cur = active_list(~skip, True)
+        for k in range(steps):
+            nxt = (lists[k % 2], counts[k % 2])
+            if not step(*cur, k == 0, nxt):
+                break
+            cur = nxt
+    else:
+        step(*active_list(~skip, False), True)
+        for _ in range(steps - 1):
+            if not step(*active_list(state.active, False), False):
+                break
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 

@@ -15,11 +15,15 @@ row, 4096 21x21 subsets, AFFINE / BICUBIC, pyramid levels 2-1-0) it times
   - ops/solve.lm_delta alone, 50 calls chained the same way (from a CUDA
     graph, and issued eagerly),
   - ops/solve.lm_step, the LM-step kernel, on 4096 AFFINE subsets of
-    problems.lm_step_problem (from a CUDA graph of 50, and issued
-    eagerly), beside lm_delta,
-  - an LM iteration whose list is empty (the list, K1 and the LM step at
-    level 0, every launch exiting at once): device time from a CUDA graph
-    of 20, and the host's issue a call,
+    problems.lm_step_problem, the whole list with its length on the
+    device and the next list written, as the LM loop launches it (from a
+    CUDA graph of 50, and issued eagerly), beside lm_delta,
+  - an LM iteration whose list is empty, as the loop issues it: K1 and
+    the LM step over an empty device list at level 0, every launch
+    exiting at once (the step writing a zero count): device time from a
+    CUDA graph of 20, and the host's issue a call; beside it the device
+    time of the form before the step wrote the next list, active_list +
+    K1 + the step, from a graph,
   - solve_level at level 0 with the assembly replaced by a stub that
     returns a fixed, well-conditioned system (identity A, constant b, a
     chi that falls slowly, so that every subset runs max_iterations
@@ -190,10 +194,13 @@ def main() -> dict[str, float]:
     out, scaling, n_pts, bbox, center = (torch.as_tensor(a, device=dev)
                                          for a in (out, *rest))
     every = torch.arange(NUM_SUBSETS, dtype=torch.int32, device=dev)
+    whole = torch.tensor([NUM_SUBSETS], dtype=torch.int32, device=dev)
+    nxt = torch.empty(NUM_SUBSETS, dtype=torch.int32, device=dev)
+    nxt_count = torch.empty(1, dtype=torch.int32, device=dev)
 
     def kernel_step():
-        lm.lm_step(step_cfg, state, out, every, None, scaling, n_pts, bbox,
-                   center, img_hw)
+        lm.lm_step(step_cfg, state, out, every, whole, scaling, n_pts, bbox,
+                   center, img_hw, False, nxt, nxt_count)
 
     times["lm_step"] = graph_ms(kernel_step, 50)
     times["lm_step_eager"] = cuda_time_ms(kernel_step, 50)
@@ -202,22 +209,30 @@ def main() -> dict[str, float]:
           f"lm_delta alone from a graph is "
           f"{times['lm_delta'] / times['lm_step']:.1f}x it")
 
-    # An LM iteration whose list is empty, at level 0.
+    # An LM iteration whose list is empty, at level 0: as the loop issues
+    # it (K1 and the step over the previous step's empty list), and the
+    # form before the step wrote the next list (active_list first).
     la, st0 = levels[0], statics[0]
     none = torch.zeros(NUM_SUBSETS, dtype=torch.bool, device=dev)
     l0_state = lm.LMState.start(cfg, p0)
     l0_scaling = 1.0 / la.n_points.clamp(min=1.0)
+    lists = torch.zeros((2, NUM_SUBSETS), dtype=torch.int32, device=dev)
+    counts = torch.zeros((2, 1), dtype=torch.int32, device=dev)
 
-    def empty_iteration():
-        idx, count = active_list(none, True)
+    def iteration(idx, count, nxt=(None, None)):
         asm = v2.fused_assemble(
             cfg.model, cfg.interpolation, st0.tile_h, st0.tile_w, st0.img_h,
             st0.img_w, la.def_img, la.pix, la.center, l0_state.p_cur,
             la.bbox, idx, count)
         lm.lm_step(cfg, l0_state, asm, idx, count, l0_scaling, la.n_points,
-                   la.bbox, la.center, la.img_hw)
+                   la.bbox, la.center, la.img_hw, False, *nxt)
+
+    def empty_iteration():
+        iteration(lists[0], counts[0], (lists[1], counts[1]))
 
     times["empty_iteration"] = graph_ms(empty_iteration, 20)
+    times["empty_iteration_sorted"] = graph_ms(
+        lambda: iteration(*active_list(none, True)), 20)
     empty_iteration()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -226,8 +241,10 @@ def main() -> dict[str, float]:
     times["empty_iteration_issue"] = (time.perf_counter() - t0) * 1e3 / 50
     torch.cuda.synchronize()
     print(f"empty LM iteration L0:  {times['empty_iteration']:9.4f} ms device "
-          f"(CUDA graph of 20), {times['empty_iteration_issue']:.4f} ms host "
-          "issue")
+          f"(K1 + the step, CUDA graph of 20), "
+          f"{times['empty_iteration_issue']:.4f} ms host issue; with "
+          f"active_list first (the form before the step wrote the list): "
+          f"{times['empty_iteration_sorted']:.4f} ms device")
 
     # The host loop's floor: solve_level with the assembly stubbed.
     calls: list = []

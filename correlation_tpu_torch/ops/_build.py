@@ -8,8 +8,8 @@ all started together, and one more nvcc links them: on an H100 host with
 three sources (three runs each, PERF.md section 6).  The library lives in
 build/ at the repository root and is named by a hash of its sources and
 flags, so a changed source rebuilds it.  Every source is built with
--fmad=false, which the fused assembly needs to round as its plain version
-does; the experiment kernels are built under it too.
+-fmad=false, which the fused assembly and the LM step need to round as
+their plain versions do; the experiment kernels are built under it too.
 """
 
 from __future__ import annotations
@@ -151,8 +151,13 @@ def load_library():
                 vp, vp, vp, vp, vp,  # p_cur, p_lg, ab, lam, chi_lg
                 vp, vp, vp, vp, vp,  # iteration, reached, error, active, init_fail
                 f32, f32, f32, f32, f32, i32,  # precision, lambda_min/max/up/down, max_iterations
+                vp, vp, vp, i32,  # idx_next, count_next, flags, flag_capacity
                 vp,  # stream
             ]
+            lib.lm_step_flags.restype = i32
+            lib.lm_step_flags.argtypes = [i32]  # n
+            lib.lm_step_workspace_words.restype = i32
+            lib.lm_step_workspace_words.argtypes = [i32]  # flags
             lib.fused_assemble_tile_in_shared.restype = i32
             lib.fused_assemble_tile_in_shared.argtypes = [i32] * 5
             lib.fused_assemble_error_string.restype = ctypes.c_char_p

@@ -14,12 +14,15 @@ lm_step is one whole LM iteration of a pyramid level after the assembly
 and, as its `init` mode, the initial step of its solve_level :597-626) over
 a list of subsets: chi, the lambda schedule, the choice of the fresh or
 the cached Gram, lm_delta, the saved-parameter step, the error codes and
-every write of the state.  On CUDA tensors it launches the hand-written
-kernel csrc/lm_step.cu, one thread a listed subset, which reads the
-list's length from the device, so an LM loop needs no host read between
-iterations; on CPU tensors it runs lm_step_reference, the plain version,
-whose arithmetic the kernel repeats op for op, so the two agree bit for
-bit.
+every write of the state; given an output list, it also writes the
+listed subsets still active after the step, in list order, and their
+number: the next iteration's list.  On CUDA tensors it launches the
+hand-written kernel csrc/lm_step.cu (a team of 8 lanes a listed subset,
+the next list by a scan across blocks in the same launch), which reads
+the list's length from the device and writes the next one there, so an
+LM loop needs no host read and no list-building op between iterations;
+on CPU tensors it runs lm_step_reference, the plain version, whose
+arithmetic the kernel repeats op for op, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +41,14 @@ _FLT_MAX = float(np.finfo(np.float32).max)
 # Launches of the LM-step kernel (CUDA tensors only); reset_launches()
 # zeroes it.
 LAUNCHES = 0
+
+# The kernel's scan workspaces, {(device index, list room n): (int64
+# tensor of the flags, two sets of group words and the launches' epoch;
+# its flags)}, zeroed once; each launch tags its flags with the epoch and
+# zeroes the group words the next one uses, so none needs clearing.  None
+# is ever freed, so a CUDA graph that captured one keeps it; launches
+# that share one are ordered on one stream.
+_WORKSPACES: dict = {}
 
 
 def reset_launches() -> None:
@@ -159,16 +170,30 @@ def _code(code: ErrorCode, like):
     return torch.full_like(like, int(code), dtype=torch.int32)
 
 
+def _write_list(state: LMState, listed, idx_next, count_next) -> None:
+    """The stable filter of the int32 list `listed` by state.active into
+    idx_next[:k], and k into count_next."""
+    if idx_next is None:
+        return
+    kept = listed[state.active[listed.long()]]
+    idx_next[:kept.numel()] = kept
+    count_next.fill_(kept.numel())
+
+
 def lm_step_reference(cfg: SolverConfig, state: LMState, out, idx, count,
                       scaling, n_points, bbox, center, img_hw,
-                      init: bool = False) -> None:
+                      init: bool = False, idx_next=None,
+                      count_next=None) -> None:
     """Plain PyTorch lm_step; same arguments.  Gathers the listed rows,
     updates them and writes them back (index_put), in the JAX body's
-    arithmetic, each float32 op as the kernel does it."""
+    arithmetic, each float32 op as the kernel does it; then the next
+    list, where asked for."""
     rows = idx if count is None else idx[:int(count)]
     n = rows.numel()
     if n == 0:
+        _write_list(state, rows, idx_next, count_next)
         return
+    listed = rows
     rows = rows.long()
     out = out[:n]
     num_p = state.p_cur.shape[1]
@@ -199,6 +224,7 @@ def lm_step_reference(cfg: SolverConfig, state: LMState, out, idx, count,
         st.active[rows] = ~fail
         st.init_fail[rows] = fail
         st.ab[rows] = out
+        _write_list(st, listed, idx_next, count_next)
         return
 
     prec = cfg.precision
@@ -249,12 +275,14 @@ def lm_step_reference(cfg: SolverConfig, state: LMState, out, idx, count,
             ),
         ),
     )
+    _write_list(st, listed, idx_next, count_next)
 
 
 def _check_step(state: LMState, out, idx, count, scaling, n_points, bbox,
-                center):
+                center, idx_next=None, count_next=None):
     """Raise unless every tensor has the dtype, shape, device and layout
-    the kernel reads."""
+    the kernel reads, and the output list is whole, on a device list and
+    apart from the input list."""
     s, num_p = state.p_cur.shape
     if num_p not in (1, 2, 3, 6):
         raise ValueError(f"p_cur must be [S, NP], NP in (1, 2, 3, 6), got "
@@ -280,6 +308,19 @@ def _check_step(state: LMState, out, idx, count, scaling, n_points, bbox,
     }
     if count is not None:
         want["count"] = (count, i32, (1,))
+    if (idx_next is None) != (count_next is None):
+        raise ValueError("idx_next and count_next go together")
+    if idx_next is not None:
+        if count is None:
+            raise ValueError("an output list needs a device list (count)")
+        want["idx_next"] = (idx_next, i32, (idx_next.shape[0],))
+        want["count_next"] = (count_next, i32, (1,))
+        if idx_next.shape[0] < idx.shape[0]:
+            raise ValueError(f"idx_next has room for {idx_next.shape[0]} "
+                             f"entries, the list {idx.shape[0]}")
+        if (idx_next.data_ptr() == idx.data_ptr()
+                or count_next.data_ptr() == count.data_ptr()):
+            raise ValueError("the output list must not be the input list")
     dev = state.p_cur.device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -292,8 +333,21 @@ def _check_step(state: LMState, out, idx, count, scaling, n_points, bbox,
                          f"{idx.shape[0]}")
 
 
+def _workspace(lib, dev: torch.device, n: int) -> tuple[torch.Tensor, int]:
+    """The scan workspace on `dev` for launches over n list positions,
+    and its flags: a power of two, at least the launch's blocks."""
+    key = (dev.index, n)
+    if key not in _WORKSPACES:
+        flags = max(256, 1 << (lib.lm_step_flags(n) - 1).bit_length())
+        _WORKSPACES[key] = (torch.zeros(lib.lm_step_workspace_words(flags),
+                                        dtype=torch.int64, device=dev),
+                            flags)
+    return _WORKSPACES[key]
+
+
 def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
-            n_points, bbox, center, img_hw, init: bool = False) -> None:
+            n_points, bbox, center, img_hw, init: bool = False,
+            idx_next=None, count_next=None) -> None:
     """One LM iteration (init: the initial step) of the subsets listed in
     idx[:count], in place on `state`.
 
@@ -302,7 +356,11 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
     subset indices, without repeats; count: int32 [1] on the device, the
     list's length (None: all n); scaling [S] = 1/N (0 for an empty
     subset); n_points [S] float32; bbox [S, 4, 2] and center [S, 2] the
-    level's; img_hw the deformed image's (height, width).
+    level's; img_hw the deformed image's (height, width); idx_next int32
+    [>= n] and count_next int32 [1] (with a device count only; both or
+    neither): the output list, the subsets of idx[:count] still active
+    after the step in list order, and their number (entries past it are
+    left as they were).
 
     The initial step classifies the assembly at the guess (error code,
     init_fail, active), takes the first step from it and caches it; an
@@ -315,11 +373,12 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
     CUDA tensors launch the kernel; CPU tensors run lm_step_reference.
     """
     global LAUNCHES
-    _check_step(state, out, idx, count, scaling, n_points, bbox, center)
+    _check_step(state, out, idx, count, scaling, n_points, bbox, center,
+                idx_next, count_next)
     dev = state.p_cur.device
     if dev.type == "cpu":
         lm_step_reference(cfg, state, out, idx, count, scaling, n_points,
-                          bbox, center, img_hw, init)
+                          bbox, center, img_hw, init, idx_next, count_next)
         return
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -327,11 +386,18 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
 
     n = idx.shape[0]
     if n == 0:
+        if count_next is not None:
+            count_next.zero_()
         return
     ptr = ctypes.c_void_p
     st = state
     img_h, img_w = img_hw
-    rc = load_library().lm_step_launch(
+    if (out.data_ptr() | st.ab.data_ptr()) % 16:
+        raise ValueError("out and ab must be 16-byte aligned (the kernel "
+                         "reads their rows 16 bytes at a time)")
+    lib = load_library()
+    ws, flags = (None, 0) if idx_next is None else _workspace(lib, dev, n)
+    rc = lib.lm_step_launch(
         int(cfg.model), int(bool(init)), ptr(out.data_ptr()),
         ptr(idx.data_ptr()),
         ptr(count.data_ptr() if count is not None else None), n,
@@ -344,6 +410,10 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
         ptr(st.active.data_ptr()), ptr(st.init_fail.data_ptr()),
         cfg.precision, cfg.lambda_min, cfg.lambda_max, cfg.lambda_up,
         cfg.lambda_down, int(cfg.max_iterations),
+        ptr(None if ws is None else idx_next.data_ptr()),
+        ptr(None if ws is None else count_next.data_ptr()),
+        ptr(None if ws is None else ws.data_ptr()),
+        flags,
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     check_launch(rc, "lm_step")

@@ -242,7 +242,7 @@ LM_STEP_ROLES = (
 
 def lm_step_problem(model: FittingModel, num_subsets: int = 4096,
                     seed: int = 0, img_hw: tuple[int, int] = (1024, 1024),
-                    max_iterations: int = 50):
+                    max_iterations: int = 50, stop: str | None = None):
     """Inputs of ops/solve.lm_step made with NumPy from `seed`: (cfg,
     arrays, out, scaling, n_points, bbox, center, img_hw), where `arrays`
     holds LMState's fields by name and `out` [S, 8, 8] each subset's
@@ -252,13 +252,18 @@ def lm_step_problem(model: FittingModel, num_subsets: int = 4096,
     and from lambda_max, both lambda clamps, convergence, BAD_DOMAIN),
     rows of NaN and infinite values, and inactive rows; the other values
     of each row are random (Grams positive definite, 21 x 21 px boxes
-    inside the image)."""
+    inside the image).  stop="none": every row converging, so no subset
+    stops in either mode; stop="all": every row at max_iterations with
+    no point (n_points 0, scaling kept), so every subset stops in either
+    mode."""
     rng = np.random.default_rng(seed)
     s = num_subsets
     num_p = {FittingModel.U: 1, FittingModel.UV: 2, FittingModel.UVQ: 3,
              FittingModel.AFFINE: 6}[model]
     cfg = SolverConfig(model=model, max_iterations=max_iterations)
     role = np.arange(s) % len(LM_STEP_ROLES)
+    if stop == "none":
+        role[:] = 0
     img_h, img_w = img_hw
     center = np.stack([rng.uniform(20, img_w - 21, s),
                        rng.uniform(20, img_h - 21, s)], -1).astype(np.float32)
@@ -308,6 +313,9 @@ def lm_step_problem(model: FittingModel, num_subsets: int = 4096,
     p_cur[role == 13, num_p - 1] = -40.0
     out[np.isin(role, (10, 13)), num_p + 1, num_p + 1] = 2.0
     active = role != 15
+    if stop == "all":
+        n_points[:] = 0.0
+        iteration[:] = max_iterations
     arrays = dict(
         p_cur=p_cur, p_lg=p_lg, ab=ab, lam=lam, chi_lg=chi_lg,
         iteration=iteration,
@@ -316,3 +324,28 @@ def lm_step_problem(model: FittingModel, num_subsets: int = 4096,
         active=active, init_fail=np.zeros(s, bool),
     )
     return cfg, arrays, out, scaling, n_points, bbox, center, img_hw
+
+
+# The lists of lm_step_list.
+LM_STEP_LISTS = ("whole", "gaps", "sparse", "last")
+
+
+def lm_step_list(num_subsets: int, kind: str, seed: int = 0):
+    """A device-style list of `num_subsets` subsets made with NumPy from
+    `seed`: (idx int32 [num_subsets], count), the listed subsets
+    idx[:count] in ascending order, every entry past count out of range
+    (S + 7: read by nothing).  kind: "whole" lists every subset; "gaps"
+    about 60% of them, "sparse" about 3% (most blocks of the kernel's
+    grid empty), "last" only the last one.  A state whose active flags
+    are exactly the listed subsets makes the step's output list equal
+    engine.active_list of its flags after the step."""
+    rng = np.random.default_rng(seed)
+    s = num_subsets
+    keep = {"whole": np.ones(s, bool),
+            "gaps": rng.random(s) < 0.6,
+            "sparse": rng.random(s) < 0.03,
+            "last": np.arange(s) == s - 1}[kind]
+    listed = np.flatnonzero(keep).astype(np.int32)
+    idx = np.full(s, s + 7, np.int32)
+    idx[:listed.size] = listed
+    return idx, int(listed.size)

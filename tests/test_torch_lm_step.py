@@ -13,11 +13,16 @@ held exactly; parameters and chi to rtol 1e-5, the tolerance of
 test_torch_solve.py, since JAX takes lax.rsqrt of the pivot.
 
 Then: a listed step equals the whole batch's step on its rows bit for
-bit and leaves the other rows alone; the device-side list (active_list)
-and the fused assembly's device length on the CPU; the Python constants
-round as the kernel takes them; and solve_level's fixed-budget loop (no
-stop at the first empty list, as on the card) equals the early-stopping
-one bit for bit and JAX's solve on tests/test_engine.py's oracle problem.
+bit and leaves the other rows alone; the step's output list (the listed
+subsets still active, in list order) equals active_list of the flags
+after it, on problems.lm_step_list's lists with gaps, in every model and
+mode; the device-side list (active_list) and the fused assembly's device
+length on the CPU; the Python constants round as the kernel takes them;
+solve_level's fixed-budget loop (no stop at the first empty list, as on
+the card), whose lists after the first are the steps' output lists in
+two alternating buffers, equals the early-stopping one bit for bit and
+JAX's solve on tests/test_engine.py's oracle problem; and the separable
+path keeps its host lists.
 """
 
 import types
@@ -41,6 +46,11 @@ from correlation_tpu_torch.config import (
 )
 from correlation_tpu_torch.ops import assemble_v2 as v2
 from correlation_tpu_torch.ops.solve import LMState, lm_step
+from correlation_tpu_torch.problems import (
+    LM_STEP_LISTS,
+    lm_step_list,
+    lm_step_problem,
+)
 
 torch.set_num_threads(2)
 
@@ -290,6 +300,70 @@ def test_listed_step_equals_whole_batch_step(model):
         assert torch.equal(_bits(t), _bits(state._asdict()[name])), name
 
 
+@pytest.mark.parametrize("stop", [None, "none", "all"],
+                         ids=["roles", "none-stop", "all-stop"])
+@pytest.mark.parametrize("kind", LM_STEP_LISTS)
+@pytest.mark.parametrize("init", [False, True], ids=["step", "init"])
+@pytest.mark.parametrize("model", list(FittingModel), ids=lambda m: m.name)
+def test_step_writes_the_next_list(model, init, kind, stop):
+    """The step's output list is the stable filter of idx[:count] by the
+    flags it leaves, so, the listed subsets being the active ones, it
+    equals active_list of those flags on its first count entries, bit
+    for bit; the state equals the step's without an output list, and the
+    buffer past the count is left as it was."""
+    s = 37  # not a multiple of the kernel's 8-lane teams or 16-subset blocks
+    cfg, arrays, out, *rest, img_hw = lm_step_problem(model, s, seed=3,
+                                                      stop=stop)
+    idx, count = lm_step_list(s, kind, seed=int(model))
+    arrays["active"] = np.isin(np.arange(s), idx[:count])
+    if init:
+        arrays["active"][:] = False
+    state = _port_state(arrays)
+    args = [torch.from_numpy(a) for a in (out[np.minimum(idx, s - 1)],
+                                          idx, np.int32([count]), *rest)]
+    plain = LMState(*(t.clone() for t in state))
+    lm_step(cfg, plain, *args, img_hw, init)
+    got = LMState(*(t.clone() for t in state))
+    idx_next = torch.full((s,), -3, dtype=torch.int32)
+    count_next = torch.full((1,), -3, dtype=torch.int32)
+    lm_step(cfg, got, *args, img_hw, init, idx_next, count_next)
+    for name, t in got._asdict().items():
+        assert torch.equal(_bits(t), _bits(plain._asdict()[name])), name
+    want, want_count = engine.active_list(got.active, True)
+    n = int(count_next)
+    assert n == int(want_count)
+    assert torch.equal(idx_next[:n], want[:n])
+    assert (idx_next[n:] == -3).all()
+    if stop == "all":
+        assert n == 0
+    elif stop == "none":
+        assert n == count
+
+
+def test_output_list_arguments_are_checked():
+    cfg, arrays, out, *rest, img_hw = lm_step_problem(FittingModel.UV, 20)
+    state = _port_state(arrays)
+    idx = torch.arange(20, dtype=torch.int32)
+    count = torch.tensor([20], dtype=torch.int32)
+    tail = [torch.from_numpy(a) for a in rest]
+    out = torch.from_numpy(out)
+    nxt = torch.zeros(20, dtype=torch.int32)
+    cnt = torch.zeros(1, dtype=torch.int32)
+    bad = {
+        "a host list": (None, nxt, cnt),
+        "no count_next": (count, nxt, None),
+        "the input list": (count, idx, cnt),
+        "the input count": (count, nxt, count),
+        "too little room": (count, nxt[:19], cnt),
+        "int64 entries": (count, nxt.long(), cnt),
+    }
+    for what, (c, i_next, c_next) in bad.items():
+        with pytest.raises(ValueError):
+            lm_step(cfg, state, out, idx, c, *tail, img_hw, False, i_next,
+                    c_next)
+            pytest.fail(what)
+
+
 def test_constants_round_as_the_kernel_takes_them():
     """The kernel gets precision and lambda_* as float32 (ctypes c_float,
     round to nearest); PyTorch rounds a Python scalar against a float32
@@ -398,7 +472,10 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
     the card, whose late lists are empty, equals the loop that stops at
     the first empty list bit for bit, and both equal JAX's Pallas solve
     (iterations and codes exactly, parameters 5e-5, chi 5e-5 relative,
-    test_torch_engine.py's tolerances)."""
+    test_torch_engine.py's tolerances).  In both, active_list runs once
+    (one level), every later list is the previous step's output list, in
+    the other of two alternating buffers, and equals the active subsets
+    in index order."""
     from correlation_tpu.config import Interpolation as JInterp
     from correlation_tpu.config import PyramidConfig as JPyramid
     from correlation_tpu.domains import make_batch as jax_make_batch
@@ -424,23 +501,44 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
                                 make_batch(subsets, None, 0), guesses,
                                 device="cpu")
 
-    steps = []
+    steps, lists, buffers = [], [], []
     orig_step = engine.lm_step
+    orig_list = engine.active_list
 
     def counted(*args, **kwargs):
-        steps.append(int(args[4][0]) if args[4] is not None else None)
+        state, idx, count, init, idx_next, count_next = (
+            args[1], args[3], args[4], args[10], args[11], args[12])
+        n = int(count[0])
+        steps.append(n)
+        if not init:
+            assert torch.equal(idx[:n],
+                               torch.nonzero(state.active).flatten().int())
+            assert idx.data_ptr() == buffers[-1][0]
+            assert count.data_ptr() == buffers[-1][1]
+        buffers.append((idx_next.data_ptr(), count_next.data_ptr()))
         return orig_step(*args, **kwargs)
 
+    def listed(*args, **kwargs):
+        lists.append(args)
+        return orig_list(*args, **kwargs)
+
     monkeypatch.setattr(engine, "lm_step", counted)
+    monkeypatch.setattr(engine, "active_list", listed)
     early = solve()
     n_early = len(steps)
+    assert len(lists) == 1
     steps.clear()
+    lists.clear()
+    buffers.clear()
     monkeypatch.setattr(engine, "_empty_list",
                         lambda idx, count: False if count is not None
                         else idx.numel() == 0)
     budget = solve()
     assert n_early < len(steps) == cfg.max_iterations + 3
     assert steps[-1] == 0  # the budget's late lists are empty
+    assert len(lists) == 1 and lists[0][1] is True
+    assert len(set(buffers)) == 2  # two buffers, alternating
+    assert buffers[0] != buffers[1] and buffers[0] == buffers[2]
     for a, b in zip(early, budget):
         assert torch.equal(_bits(a), _bits(b))
     np.testing.assert_array_equal(budget.error.numpy(), np.asarray(ref.error))
@@ -450,6 +548,39 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
                                atol=5e-5)
     np.testing.assert_allclose(budget.chi.numpy(), np.asarray(ref.chi),
                                rtol=5e-5)
+
+
+def test_sep_path_keeps_host_lists(monkeypatch):
+    """The separable assembly takes a host list each iteration (active_list
+    on the host, no device count) and asks the step for no output list."""
+    from correlation_tpu_torch.config import PyramidConfig
+    from correlation_tpu_torch.domains import make_batch
+
+    und, dfm, subsets = _oracle_problem()
+    cfg = SolverConfig(model=FittingModel.UV,
+                       interpolation=Interpolation.BICUBIC,
+                       pyramid=PyramidConfig(0, 1, 0), backend="sep")
+    calls, lists = [], []
+    orig_step, orig_list = engine.lm_step, engine.active_list
+
+    def counted(*args, **kwargs):
+        calls.append((args[4], args[11:], kwargs))
+        return orig_step(*args, **kwargs)
+
+    def listed(mask, on_device):
+        lists.append(on_device)
+        return orig_list(mask, on_device)
+
+    monkeypatch.setattr(engine, "lm_step", counted)
+    monkeypatch.setattr(engine, "active_list", listed)
+    res = engine.correlate(cfg, [und[..., None].astype(np.float32)],
+                           [dfm[..., None].astype(np.float32)],
+                           make_batch(subsets, None, 0),
+                           np.full((3, 2), 0.5, np.float32), device="cpu")
+    assert calls and all(count is None and nxt == (None, None) and not kw
+                         for count, nxt, kw in calls)
+    assert lists == [False] * (len(calls) + 1)  # and the empty last list
+    assert (res.error.numpy() == 0).all()
 
 
 def test_no_kernel_launcher_synchronises():

@@ -6,13 +6,20 @@ The kernel repeats the plain version's float32 operations in order,
 built with -fmad=false, with IEEE division and the pivot's sqrt in
 float64, so the two agree bit for bit (a NaN as a NaN) over every branch
 of problems.lm_step_problem, for the four models, in both modes, at 4096
-subsets.
+subsets; and its output list (the listed subsets still active, written
+by a scan across blocks in the same launch) equals the plain version's
+and engine.active_list's, over problems.lm_step_list's lists at 1, 37,
+4096 and 16384 subsets, when every subset stops and when none does, and
+from a CUDA graph replayed twice.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from correlation_tpu_torch import engine
 from correlation_tpu_torch.config import FittingModel
 from correlation_tpu_torch.domains import SubsetBatch
 from correlation_tpu_torch.engine import active_list, correlate_frames
@@ -20,8 +27,10 @@ from correlation_tpu_torch.ops import assemble_v2 as v2
 from correlation_tpu_torch.ops import solve
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.problems import (
+    LM_STEP_LISTS,
     assembly_levels,
     dense_grid_problem,
+    lm_step_list,
     lm_step_problem,
 )
 
@@ -67,18 +76,109 @@ def test_kernel_equals_plain(dev, model, init):
     listed = out[perm.to(dev)]
     got = solve.LMState(*(a.clone() for a in state))
     ref = solve.LMState(*(a.clone() for a in state))
+    nxt = [torch.full((s,), -1, dtype=torch.int32, device=dev)
+           for _ in range(2)]
+    cnt = [torch.full((1,), -1, dtype=torch.int32, device=dev)
+           for _ in range(2)]
     before = solve.LAUNCHES
     solve.lm_step(cfg, got, listed, idx, count, scaling, n_points, bbox,
-                  center, hw, init)
+                  center, hw, init, nxt[0], cnt[0])
     assert solve.LAUNCHES == before + 1
     solve.lm_step_reference(cfg, ref, listed, idx, count, scaling, n_points,
-                            bbox, center, hw, init)
+                            bbox, center, hw, init, nxt[1], cnt[1])
     torch.cuda.synchronize()
     for name, a in got._asdict().items():
         assert same_bits(a, ref._asdict()[name]), name
+    # The output list keeps the (shuffled) input list's order.
+    assert torch.equal(cnt[0], cnt[1]) and torch.equal(nxt[0], nxt[1])
     rest = perm[3 * s // 4:].to(dev)
     for name, a in got._asdict().items():
         assert same_bits(a[rest], state._asdict()[name][rest]), name
+
+
+@functools.lru_cache(maxsize=None)
+def _problem(model, s, stop):
+    return lm_step_problem(model, s, seed=int(model), stop=stop)
+
+
+def _list_case(dev, model, s, kind, stop, init):
+    """(cfg, state, args, img_hw, count): the state's active flags are the
+    listed subsets (none in init mode, as LMState.start)."""
+    cfg, arrays, out, *rest, hw = _problem(model, s, stop)
+    idx, count = lm_step_list(s, kind, seed=s + int(model))
+    arrays = dict(arrays)
+    arrays["active"] = np.isin(np.arange(s), idx[:count]) & (not init)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    state = solve.LMState(**{k: t(v) for k, v in arrays.items()})
+    args = (t(out[np.minimum(idx, s - 1)]), t(idx),
+            t(np.int32([count])), *(t(a) for a in rest))
+    return cfg, state, args, hw, count
+
+
+@pytest.mark.parametrize("stop", [None, "none", "all"],
+                         ids=["roles", "none-stop", "all-stop"])
+@pytest.mark.parametrize("kind", LM_STEP_LISTS)
+@pytest.mark.parametrize("s", [1, 37, 4096, 16384])
+@pytest.mark.parametrize("init", [False, True], ids=["step", "init"])
+@pytest.mark.parametrize("model", list(FittingModel), ids=lambda m: m.name)
+def test_kernel_writes_the_next_list(dev, model, init, s, kind, stop):
+    """State and output list bit for bit with the plain version, the list
+    equal to active_list of the flags the step leaves, nothing written
+    past its count."""
+    cfg, state, args, hw, count = _list_case(dev, model, s, kind, stop, init)
+    got = solve.LMState(*(a.clone() for a in state))
+    ref = solve.LMState(*(a.clone() for a in state))
+    nxt = torch.full((s,), -5, dtype=torch.int32, device=dev)
+    cnt = torch.full((1,), -5, dtype=torch.int32, device=dev)
+    ref_nxt, ref_cnt = nxt.clone(), cnt.clone()
+    solve.lm_step(cfg, got, *args, hw, init, nxt, cnt)
+    solve.lm_step_reference(cfg, ref, *args, hw, init, ref_nxt, ref_cnt)
+    torch.cuda.synchronize()
+    for name, a in got._asdict().items():
+        assert same_bits(a, ref._asdict()[name]), name
+    assert torch.equal(cnt, ref_cnt) and torch.equal(nxt, ref_nxt)
+    want, want_count = active_list(got.active, True)
+    n = int(cnt)
+    assert n == int(want_count) and torch.equal(nxt[:n], want[:n])
+    assert bool((nxt[n:] == -5).all())
+    if stop == "all":
+        assert n == 0
+    elif stop == "none":
+        assert n == count
+
+
+def test_graph_replays_write_the_same_list(dev):
+    """The kernel captured in a CUDA graph and replayed twice from the
+    same state writes the same list both times: its look-back workspace
+    is clean again after each launch."""
+    cfg, state, args, hw, _ = _list_case(dev, FittingModel.AFFINE, 16384,
+                                         "gaps", None, False)
+    work = solve.LMState(*(a.clone() for a in state))
+    nxt = torch.zeros(16384, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    ref = solve.LMState(*(a.clone() for a in state))
+    ref_nxt, ref_cnt = nxt.clone(), cnt.clone()
+    solve.lm_step_reference(cfg, ref, *args, hw, False, ref_nxt, ref_cnt)
+    solve.lm_step(cfg, work, *args, hw, False, nxt, cnt)  # warm, eager
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        solve.lm_step(cfg, work, *args, hw, False, nxt, cnt)
+    for _ in range(2):
+        for a, b in zip(work, state):
+            a.copy_(b)
+        nxt.zero_()
+        cnt.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        n = int(ref_cnt)
+        assert torch.equal(cnt, ref_cnt)
+        assert torch.equal(nxt[:n], ref_nxt[:n])
+        for name, a in work._asdict().items():
+            assert same_bits(a, ref._asdict()[name]), name
 
 
 def test_empty_and_host_lists(dev):
@@ -132,7 +232,8 @@ def test_fused_assembly_with_a_device_length(dev, levels, lvl):
 def test_chunk_enqueues_without_a_host_sync(dev):
     """A chained solve on the tiled path runs from the staged stack to the
     packed result with no synchronising call (CUDA sync debug mode
-    "error" raises at one), and equals the same solve on the CPU."""
+    "error" raises at one), builds a list with active_list once a level,
+    and equals the same solve on the CPU."""
     cfg, und, dfm, batch, params0 = dense_grid_problem(256, img_hw=256)
     stack = np.stack([und] + [dfm] * 3)[..., None].astype(np.uint8)
     stack_dev = torch.from_numpy(stack).to(dev)
@@ -140,12 +241,22 @@ def test_chunk_enqueues_without_a_host_sync(dev):
     p0 = torch.as_tensor(params0, device=dev)
     torch.cuda.synchronize()
     before = solve.LAUNCHES
+    lists = []
+    orig = engine.active_list
+
+    def counted(*args):
+        lists.append(args[1])
+        return orig(*args)
+
+    engine.active_list = counted
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = correlate_frames(cfg, stack_dev, gb, p0, device=dev)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        engine.active_list = orig
     assert solve.LAUNCHES - before == 3 * 3 * (cfg.max_iterations + 3)
+    assert lists == [True] * 3 * 3  # once a level of each pair
     cpu = correlate_frames(cfg, stack, batch, params0, device="cpu")
     for key in ("params", "chi", "iterations", "error"):
         assert same_bits(out[key].cpu(), cpu[key]), key
