@@ -82,6 +82,7 @@ from correlation_tpu_torch.parallel.mesh import (
     shard_inputs,
     shard_rows,
 )
+from correlation_tpu_torch.utils import profiling
 
 class LevelArrays(NamedTuple):
     """Per-pyramid-level solver inputs for a subset batch."""
@@ -187,6 +188,7 @@ def _empty_list(idx: torch.Tensor, count: torch.Tensor | None) -> bool:
     return count.device.type == "cpu" and int(count) == 0
 
 
+@profiling.traced(profiling.ENGINE_SOLVE_LEVEL)
 def solve_level(
     cfg: SolverConfig,
     level: LevelArrays,
@@ -204,16 +206,20 @@ def solve_level(
     Each LM iteration is: the list of the still-active subsets, their
     assembly, and ops/solve.lm_step on them, as the initial step is on the
     subsets not skipped.  On the fused assembly the list stays on the
-    device: active_list builds the initial step's list once, and each
-    step writes the next list into the other of two buffers (and counts)
-    that alternate, so the host always knows which is current without a
-    read.  On the card the level's initial step and max_iterations + 2
+    device: active_list builds the initial step's list once, and step k
+    writes the next list into the other of two buffers that alternate and
+    its length into row k of a counts buffer, so the host always knows
+    which is current without a read, and the level's lengths stay on the
+    device.  On the card the level's initial step and max_iterations + 2
     iterations (the JAX loop's step bound) enqueue without one host read,
     an iteration past the last active subset costing two launches that
     exit at once; on the CPU the loop stops at the first empty list.  The
     separable and field assemblies, plain torch over the list, take a
     host list instead (active_list every iteration, one sync each) and
-    stop at the first empty one.  The results are the same.
+    stop at the first empty one.  The results are the same.  While a
+    utils.profiling recording is open, the list length of every step
+    issued is handed to it (a device count by reference, read when the
+    recording closes).
     """
     assemble, device_list = _make_assemble(cfg, level, static)
     n_points = level.n_points.contiguous()
@@ -221,10 +227,14 @@ def solve_level(
     scaling = torch.where(n_ok, 1.0 / n_points.clamp(min=1.0), 0.0)
     state = LMState.start(cfg, params0)
     bbox, center = level.bbox.contiguous(), level.center.contiguous()
+    rec = profiling.current_recording()
+    lengths = None if rec is None else []  # each issued step's list length
 
     def step(idx, count, init, nxt=(None, None)):
         if _empty_list(idx, count):
             return False
+        if lengths is not None and count is None:
+            lengths.append(idx.shape[0])
         out = assemble(state.p_cur, idx, count)
         lm_step(cfg, state, out, idx, count, scaling, n_points, bbox, center,
                 level.img_hw, init, *nxt)
@@ -236,19 +246,27 @@ def solve_level(
         # an older list's), which the CPU assembly checks.
         lists = torch.zeros((2, params0.shape[0]), dtype=torch.int32,
                             device=params0.device)
-        counts = torch.empty((2, 1), dtype=torch.int32,
+        counts = torch.empty((steps, 1), dtype=torch.int32,
                              device=params0.device)
         cur = active_list(~skip, True)
+        first, issued = cur[1], steps
         for k in range(steps):
-            nxt = (lists[k % 2], counts[k % 2])
+            nxt = (lists[k % 2], counts[k])
             if not step(*cur, k == 0, nxt):
+                issued = k
                 break
             cur = nxt
+        if lengths is not None and issued:
+            # Step k's list length, on the device: the first list's count
+            # for k = 0, counts[k - 1] after.
+            lengths += [first, counts[:issued - 1]]
     else:
         step(*active_list(~skip, False), True)
         for _ in range(steps - 1):
             if not step(*active_list(state.active, False), False):
                 break
+    if rec is not None:
+        rec.add_lengths(lengths)
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 
@@ -626,42 +644,43 @@ def correlate_frames(
     """
     check_channels(cfg, np.shape(frames_stack), "the frames")
     device = resolve_device(cfg, device, frames_stack, mesh)
-    frames = _as_f32(frames_stack, device)
-    k = frames.shape[0] - 1
-    pyr = build_pyramid(frames, cfg.pyramid.stop)
-    assembly = resolve_assembly(cfg, frames.shape[-1])
-    field = assembly == "field"
-    if field:
-        statics = None
-    elif statics is None:
-        statics = compute_level_statics(cfg, subsets, pyr,
-                                        sep=assembly == "sep")
-    num_subsets = subsets.num_subsets
-    if mesh is not None:
-        subsets, guess0 = shard_inputs(mesh, subsets, guess0)
-        p_seed, prev_seed, chi_seed, it_seed, off_seed, ucen_seed = (
-            shard_rows(mesh, a) for a in (p_seed, prev_seed, chi_seed,
-                                          it_seed, off_seed, ucen_seed))
-    batch = subsets.to_device(device)
-    s = batch.num_subsets
-    schedule = cfg.pyramid.levels_coarse_to_fine()
+    with profiling.trace_region(profiling.ENGINE_PREPARE):
+        frames = _as_f32(frames_stack, device)
+        k = frames.shape[0] - 1
+        pyr = build_pyramid(frames, cfg.pyramid.stop)
+        assembly = resolve_assembly(cfg, frames.shape[-1])
+        field = assembly == "field"
+        if field:
+            statics = None
+        elif statics is None:
+            statics = compute_level_statics(cfg, subsets, pyr,
+                                            sep=assembly == "sep")
+        num_subsets = subsets.num_subsets
+        if mesh is not None:
+            subsets, guess0 = shard_inputs(mesh, subsets, guess0)
+            p_seed, prev_seed, chi_seed, it_seed, off_seed, ucen_seed = (
+                shard_rows(mesh, a) for a in (p_seed, prev_seed, chi_seed,
+                                              it_seed, off_seed, ucen_seed))
+        batch = subsets.to_device(device)
+        s = batch.num_subsets
+        schedule = cfg.pyramid.levels_coarse_to_fine()
 
-    # Frame-invariant work leaves the frame loop: the padded deformed
-    # levels of the whole stack (tiled and separable) and, for the Eulerian
-    # reference-First chain, the reference frame's level arrays.
-    prepped = None if field else {
-        lvl: v2.prepare_image(pyr[lvl], statics[lvl].tile_h,
-                              statics[lvl].tile_w)
-        for lvl in schedule
-    }
-    und0 = [level[0] for level in pyr]
-    base = None
-    if reference_first and not lagrangian:
-        base = prepare_levels(
-            cfg, und0, und0, batch.xy, batch.mask, batch.center0, statics,
-            skip_def=True,
-        )
-    n_points0 = batch.mask[0].sum(dim=-1)
+        # Frame-invariant work leaves the frame loop: the padded deformed
+        # levels of the whole stack (tiled and separable) and, for the
+        # Eulerian reference-First chain, the reference frame's level arrays.
+        prepped = None if field else {
+            lvl: v2.prepare_image(pyr[lvl], statics[lvl].tile_h,
+                                  statics[lvl].tile_w)
+            for lvl in schedule
+        }
+        und0 = [level[0] for level in pyr]
+        base = None
+        if reference_first and not lagrangian:
+            base = prepare_levels(
+                cfg, und0, und0, batch.xy, batch.mask, batch.center0, statics,
+                skip_def=True,
+            )
+        n_points0 = batch.mask[0].sum(dim=-1)
 
     def f32(a):
         return _as_f32(a, device)
@@ -686,7 +705,7 @@ def correlate_frames(
         ucen = batch.center0 if ucen_seed is None else f32(ucen_seed)
 
     ys = {"params": [], "guess": [], "chi": [], "iterations": [], "error": []}
-    for i in range(k):
+    for i in profiling.trace_each(profiling.ENGINE_PAIR, range(k)):
         first = i == override
         if lagrangian:
             if not first:

@@ -75,6 +75,17 @@ from correlation_tpu_torch.engine import (
 from correlation_tpu_torch.models.warp import warp_points
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_flag
+from correlation_tpu_torch.utils.profiling import (
+    SEQ_DISPATCH,
+    SEQ_EMIT,
+    SEQ_FETCH,
+    SEQ_MAKE_BATCH,
+    SEQ_PAIR,
+    SEQ_RUN,
+    SEQ_STAGE,
+    trace_region,
+    traced,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,6 +364,7 @@ def _uv(params: np.ndarray) -> np.ndarray:
     return uv
 
 
+@traced(SEQ_RUN)
 def run_sequence(
     frames,
     point_lists: list[np.ndarray],
@@ -448,12 +460,13 @@ def run_sequence(
         # Padded shapes grow once and then hold across frames.
         nonlocal batch
         if batch is None or points_moved:
-            batch = make_batch(
-                state.und_points,
-                state.und_center if state.explicit_centers else None,
-                stop,
-                pad_to=state.pad_to,
-            ).to_device(device)
+            with trace_region(SEQ_MAKE_BATCH):
+                batch = make_batch(
+                    state.und_points,
+                    state.und_center if state.explicit_centers else None,
+                    stop,
+                    pad_to=state.pad_to,
+                ).to_device(device)
             state.pad_to = [a.shape[1] for a in batch.xy]
         return batch
 
@@ -546,7 +559,7 @@ def run_sequence(
             and cfg.deformation != DeformationDescription.EULERIAN
         )
         subsets = batch_for(points_moved)
-        with measured(subsets.num_subsets):
+        with measured(subsets.num_subsets), trace_region(SEQ_PAIR):
             result = correlate(solver, pyramid_of(und_idx),
                                pyramid_of(frame + 1), subsets, state.guess,
                                device=device, mesh=mesh)
@@ -562,8 +575,9 @@ def run_sequence(
             params = np.where(bad[:, None], state.params, params)
             chi = np.where(bad, state.chi, chi)
             iterations = np.where(bad, state.iterations, iterations)
-        emit(frame, params, state.guess, chi, iterations, errors,
-             und_center, n_points)
+        with trace_region(SEQ_EMIT):
+            emit(frame, params, state.guess, chi, iterations, errors,
+                 und_center, n_points)
         stop_now = (cfg.error_mode == ErrorMode.STOP_ALL
                     and bool((errors != int(ErrorCode.NONE)).any()))
         if stop_now or (frame + 1) % max(checkpoint_every, 1) == 0:
@@ -607,6 +621,7 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
     host_off = np.zeros((len(state.und_points), 2), np.float32)
     carry = None
 
+    @traced(SEQ_STAGE)
     def stage(frame):
         """(k, stack) of the chunk starting at `frame`, its copy to the
         device started."""
@@ -637,7 +652,7 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
             seeds = dict(zip(
                 ("p_seed", "prev_seed", "chi_seed", "it_seed", "off_seed",
                  "ucen_seed"), carry))
-        with measured(k * batch.num_subsets):
+        with measured(k * batch.num_subsets), trace_region(SEQ_DISPATCH):
             out = correlate_frames(
                 solver, stack, batch, guess0=state.guess,
                 reference_first=ref_first, stop_frame=stop_frame,
@@ -654,6 +669,7 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
                 done.record()
         return frame, k, packed, done
 
+    @traced(SEQ_FETCH)
     def fetch(packed, done):
         """The packed results as a NumPy array of their own, once their
         copy has landed."""
@@ -662,6 +678,7 @@ def _run_chunked(frames, cfg, state, batch, start_frame, device, mesh,
                 done.synchronize()
             return packed.numpy().copy()
 
+    @traced(SEQ_EMIT)
     def emit_chunk(frame, k, packed, halt):
         """Emit a solved chunk's records and save the checkpoint where
         due; False when a stop (STOP_ALL or should_stop) ends the run."""

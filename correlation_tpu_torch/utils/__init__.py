@@ -1,5 +1,9 @@
 """Host utilities of the port: checkpoints, timing and tracing."""
 
-from correlation_tpu_torch.utils.profiling import SolveMeter, trace_region
+from correlation_tpu_torch.utils.profiling import (
+    SolveMeter,
+    recording,
+    trace_region,
+)
 
-__all__ = ["SolveMeter", "trace_region"]
+__all__ = ["SolveMeter", "recording", "trace_region"]

@@ -1,8 +1,14 @@
 """Tracing, throughput metering and card timing.
 
 trace_region and start_trace / stop_trace are the JAX package's profiler
-hooks on torch.profiler: a region is a record_function range (and an NVTX
-range once the card is in use), and a trace is a Chrome trace file.
+hooks on torch.profiler: a region is a record_function range while a
+profiler runs, and a trace is a Chrome trace file.  recording() keeps the
+same regions in memory instead (spans on the host's clock, with their
+parents) and counts the LM loop's steps and empty steps, for a caller
+that reads them itself.  With neither open, a region costs one flag check
+and one query of the profiler's state.  The span names the program opens
+are the constants below; traced and trace_each open them around a
+function's calls and a loop's passes.
 
 SolveMeter is the JAX package's always-on solves/s meter
 (correlation_tpu/utils/profiling.py).  It reads the host's clock around
@@ -23,6 +29,8 @@ would.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import math
 import os
 import subprocess
@@ -31,20 +39,128 @@ import time
 import torch
 
 
-@contextlib.contextmanager
-def trace_region(name: str):
-    """Name a host-side region in a torch.profiler trace, and in NVTX
-    (for external CUDA profilers) once the card is in use.  A CPU-only
-    build never touches torch.cuda.nvtx."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_initialized():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
+# The spans the program opens, from the sequence layer down to one
+# pyramid level's LM loop; none is opened inside the loop.
+SEQ_RUN = "seq.run"  # run_sequence, whole
+SEQ_MAKE_BATCH = "seq.make_batch"  # the subset batch, built and moved
+SEQ_STAGE = "seq.stage"  # a chunk's frame stack, stacked and sent
+SEQ_DISPATCH = "seq.dispatch"  # a chunk's correlate_frames and result copy
+SEQ_FETCH = "seq.fetch"  # the wait for a chunk's results
+SEQ_EMIT = "seq.emit"  # records and checkpoints of a chunk or a pair
+SEQ_PAIR = "seq.pair"  # the pair-by-pair path's solve and its copy back
+ENGINE_PREPARE = "engine.prepare"  # a chunk's pyramid, statics, levels
+ENGINE_PAIR = "engine.pair"  # one pair of a chunk
+ENGINE_SOLVE_LEVEL = "engine.solve_level"  # one level's LM loop
+
+
+@dataclasses.dataclass
+class Span:
+    """A region recorded on the host's clock (time.perf_counter_ns)."""
+
+    name: str
+    start_ns: int
+    end_ns: int  # 0 while the region is open
+    parent: int | None  # index of the enclosing span in Recording.spans
+
+
+class Recording:
+    """What recording() collects: `spans` in the order they opened, and
+    `counters`: `steps`, the LM steps issued, and `empty_steps`, those
+    issued on an empty list.  A step's list length may be a device
+    tensor; such lengths are read when the recording closes."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: dict[str, int] = {}
+        self._open: list[int] = []
+        self._lengths: list = []  # ints, and int32 tensors of lengths
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        parent = self._open[-1] if self._open else None
+        span = Span(name, time.perf_counter_ns(), 0, parent)
+        self._open.append(len(self.spans))
+        self.spans.append(span)
         try:
             yield
         finally:
-            torch.cuda.nvtx.range_pop()
+            span.end_ns = time.perf_counter_ns()
+            self._open.pop()
+
+    def add_lengths(self, lengths: list) -> None:
+        """The list lengths of LM steps issued (ints, and int32 tensors of
+        lengths that the steps write on the device); nothing is read
+        until the recording closes."""
+        self._lengths += lengths
+
+    def _resolve(self) -> None:
+        """Read every deferred length (one copy to the host) and count the
+        steps and the empty ones."""
+        tensors = [x.reshape(-1) for x in self._lengths if torch.is_tensor(x)]
+        lengths = torch.cat(tensors).tolist() if tensors else []
+        lengths += [int(x) for x in self._lengths if not torch.is_tensor(x)]
+        self.counters = {"steps": len(lengths),
+                         "empty_steps": lengths.count(0)}
+        self._lengths = []
+
+
+_RECORDING: list = []  # the open recording: [Recording]
+_OFF = contextlib.nullcontext()
+
+
+def trace_region(name: str):
+    """A context manager naming a host-side region `name`: a span of the
+    open recording(), else a record_function range while a torch profiler
+    runs (it lands in the profiler's trace beside the kernels and copies,
+    on their clock), else nothing at all."""
+    if _RECORDING:
+        return _RECORDING[0]._span(name)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def traced(name: str):
+    """A decorator: each call of the function is a trace_region(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with trace_region(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def trace_each(name: str, items):
+    """Yield each of `items` inside a trace_region(name), so that each
+    pass of a loop over them is a region."""
+    for item in items:
+        with trace_region(name):
+            yield item
+
+
+def current_recording() -> Recording | None:
+    """The open recording, or None."""
+    return _RECORDING[0] if _RECORDING else None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the program's spans and counters in memory while the block
+    runs; yields the Recording.  On exit the device is synchronised once
+    and the LM steps' list lengths are read.  One at a time: a second
+    raises RuntimeError."""
+    if _RECORDING:
+        raise RuntimeError("a recording is already open")
+    rec = Recording()
+    _RECORDING.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.pop()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        rec._resolve()
 
 
 _TRACE: list = []  # the running trace: [(profiler, logdir)]

@@ -474,8 +474,8 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
     (iterations and codes exactly, parameters 5e-5, chi 5e-5 relative,
     test_torch_engine.py's tolerances).  In both, active_list runs once
     (one level), every later list is the previous step's output list, in
-    the other of two alternating buffers, and equals the active subsets
-    in index order."""
+    the other of two alternating buffers (its length in the step's own
+    row of the counts), and equals the active subsets in index order."""
     from correlation_tpu.config import Interpolation as JInterp
     from correlation_tpu.config import PyramidConfig as JPyramid
     from correlation_tpu.domains import make_batch as jax_make_batch
@@ -537,8 +537,13 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
     assert n_early < len(steps) == cfg.max_iterations + 3
     assert steps[-1] == 0  # the budget's late lists are empty
     assert len(lists) == 1 and lists[0][1] is True
-    assert len(set(buffers)) == 2  # two buffers, alternating
-    assert buffers[0] != buffers[1] and buffers[0] == buffers[2]
+    # Two list buffers, alternating; a count row each step, in step order,
+    # so that the level's list lengths stay on the device.
+    lists_at = [b[0] for b in buffers]
+    assert len(set(lists_at)) == 2
+    assert lists_at[0] != lists_at[1] and lists_at[0] == lists_at[2]
+    assert [b[1] for b in buffers] == [buffers[0][1] + 4 * k
+                                       for k in range(len(steps))]
     for a, b in zip(early, budget):
         assert torch.equal(_bits(a), _bits(b))
     np.testing.assert_array_equal(budget.error.numpy(), np.asarray(ref.error))

@@ -85,3 +85,44 @@ def test_blob_sequence_on_global_tile_equals_cpu():
     assert big
     # Every level of the blob is split over several blocks.
     assert all(v2.subset_chunks(k[0]) > 1 for k in v2.LAUNCHES_BY_SHAPE)
+
+
+def test_recording_counts_the_card_steps(monkeypatch):
+    """On a grid of the benchmark's size (4096 subsets, 1 MP frames): a
+    recording counts every LM-step launch (53 a level, 159 a pair), its
+    empty steps are the zero lengths the card's count rows hold (read
+    here from copies taken as each step is issued), and the records equal
+    a run's without a recording bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from correlation_tpu_torch import engine
+    from correlation_tpu_torch.ops import solve
+    from correlation_tpu_torch.utils import profiling
+
+    pairs = 4
+    cfg, frames, pts, centers = sequence_problem(4096, pairs, img_hw=1024)
+    scfg = SequenceConfig(solver=cfg, frame_chunk=pairs)
+    plain = run_sequence(list(frames), pts, scfg, centers=centers,
+                         device="cuda")
+    seen = []
+    real = engine.lm_step
+
+    def copied(cfg, state, out, idx, count, *args):
+        seen.append(count.clone())
+        return real(cfg, state, out, idx, count, *args)
+
+    monkeypatch.setattr(engine, "lm_step", copied)
+    before = solve.LAUNCHES
+    with profiling.recording() as rec:
+        recorded = run_sequence(list(frames), pts, scfg, centers=centers,
+                                device="cuda")
+    steps = (cfg.max_iterations + 3) * len(cfg.pyramid.levels_coarse_to_fine())
+    assert rec.counters["steps"] == solve.LAUNCHES - before == steps * pairs
+    lengths = torch.cat(seen).tolist()
+    assert rec.counters["empty_steps"] == lengths.count(0) > 0
+    assert len(lengths) == rec.counters["steps"]
+    for a, b in zip(plain, recorded):
+        np.testing.assert_array_equal(a.params, b.params)
+        np.testing.assert_array_equal(a.chi, b.chi)
+        np.testing.assert_array_equal(a.iterations, b.iterations)
+        np.testing.assert_array_equal(a.error, b.error)
