@@ -140,9 +140,8 @@ Phases, one informational line each:
      prepare_levels, solve_level per level with its host issue, K1
      chained per level, lm_delta, the LM-step kernel, an iteration whose
      list is empty as the loop issues it and with active_list before it,
-     solve_level with the assembly stubbed, the busy share
-     of an 8-pair chunk under torch.profiler), every time finite and
-     positive.
+     the busy share of an 8-pair chunk under torch.profiler), every time
+     finite and positive.
 Then a JSON line with the kernel records (K1 at each level of the dense
 grid and of the blob, the LM step, K2, the five stages): launches on the
 main path (K1: its level's, with the list's capacity a launch and the

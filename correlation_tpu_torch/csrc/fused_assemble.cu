@@ -108,6 +108,7 @@
 #include <stdio.h>
 
 #include <algorithm>
+#include <new>
 
 namespace {
 
@@ -795,77 +796,117 @@ inline size_t place(Args& a, int c, size_t budget) {
   return (size_t)subset_floats(a, c) * 4;
 }
 
-template <int MODEL, int INTERP, int C>
-cudaError_t launch_warp(Args a, cudaStream_t stream) {
-  // Fewer subsets a block (and a warp) where all do not fit.  Nothing
-  // here changes the sums.
-  const size_t per = place(a, C, kWarpBudget);
-  a.groups = 32 / kWarpLanes;
-  int warps = fitting(kWarpBudget, per * a.groups, kWarpSubsets);
-  if (warps == 0) {
-    a.groups = 1;
-    warps = fitting(kWarpBudget, per, kWarpSubsets);
-  }
-  const size_t smem = per * a.groups * warps;
-  auto kernel = fused_assemble_warp<MODEL, INTERP, C>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int per_block = a.groups * warps;
-  kernel<<<(a.n + per_block - 1) / per_block, 32 * warps, smem, stream>>>(a);
+// A launch planned once and issued any number of times: plan_path()
+// chooses the path, the grid and the shared memory and makes the opt-in;
+// issue() launches it on whichever list `a.idx` / `a.count` then name.
+// fused_assemble_launch plans and issues once; an LM level plans K1 once
+// and issues it at every step (lm_level.cu).
+struct Plan {
+  Args a;
+  void (*kernel)(Args);
+  // The split path's second pass (the spans' sums), else null.
+  void (*span_sum)(const float*, int, const int*, int, float*);
+  int blocks, threads;
+  size_t smem;
+};
+
+cudaError_t issue(const Plan& p, cudaStream_t stream) {
+  p.kernel<<<p.blocks, p.threads, p.smem, stream>>>(p.a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !p.span_sum) return e;
+  p.span_sum<<<p.a.n, kSumThreads, 0, stream>>>(p.a.partial, p.a.chunks,
+                                                p.a.count, p.a.n, p.a.out);
   return cudaGetLastError();
 }
 
 template <int MODEL, int INTERP, int C>
-cudaError_t launch_split(Args a, cudaStream_t stream) {
-  const size_t smem = place(a, C, kBlockBudget);
-  auto kernel = fused_assemble_span<MODEL, INTERP, C>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<a.n * a.chunks, kBlockThreads, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  fused_assemble_span_sum<MODEL><<<a.n, kSumThreads, 0, stream>>>(
-      a.partial, a.chunks, a.count, a.n, a.out);
-  return cudaGetLastError();
-}
-
-template <int MODEL, int INTERP, int C>
-cudaError_t launch(int threads, Args a, cudaStream_t stream) {
+cudaError_t plan_path(int threads, Plan& p) {
+  Args& a = p.a;
   a.vec = a.p_len % 4 == 0 && a.chunk % 4 == 0 &&
           (uintptr_t)a.pix % 16 == 0;
+  p.span_sum = nullptr;
   if (a.chunks > 1) {
     if (threads != kBlockThreads) return cudaErrorInvalidValue;
-    return launch_split<MODEL, INTERP, C>(a, stream);
+    p.kernel = fused_assemble_span<MODEL, INTERP, C>;
+    p.span_sum = fused_assemble_span_sum<MODEL>;
+    p.smem = place(a, C, kBlockBudget);
+    p.blocks = a.n * a.chunks;
+    p.threads = kBlockThreads;
+  } else if (threads == kWarpLanes) {
+    // Fewer subsets a block (and a warp) where all do not fit.  Nothing
+    // here changes the sums.
+    const size_t per = place(a, C, kWarpBudget);
+    a.groups = 32 / kWarpLanes;
+    int warps = fitting(kWarpBudget, per * a.groups, kWarpSubsets);
+    if (warps == 0) {
+      a.groups = 1;
+      warps = fitting(kWarpBudget, per, kWarpSubsets);
+    }
+    const int per_block = a.groups * warps;
+    p.kernel = fused_assemble_warp<MODEL, INTERP, C>;
+    p.smem = per * per_block;
+    p.blocks = (a.n + per_block - 1) / per_block;
+    p.threads = 32 * warps;
+  } else if (threads == kBlockThreads) {
+    p.kernel = fused_assemble_block<MODEL, INTERP, C>;
+    p.smem = place(a, C, kBlockBudget);
+    p.blocks = a.n;
+    p.threads = kBlockThreads;
+  } else {
+    return cudaErrorInvalidValue;
   }
-  if (threads == kWarpLanes)
-    return launch_warp<MODEL, INTERP, C>(a, stream);
-  if (threads != kBlockThreads) return cudaErrorInvalidValue;
-  const size_t smem = place(a, C, kBlockBudget);
-  auto kernel = fused_assemble_block<MODEL, INTERP, C>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<a.n, kBlockThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return allow_smem(p.kernel, p.smem);
 }
 
 template <int MODEL, int INTERP>
-cudaError_t dispatch_c(int c, int threads, const Args& a,
-                       cudaStream_t stream) {
+cudaError_t plan_c(int c, int threads, Plan& p) {
   switch (c) {
-    case 1: return launch<MODEL, INTERP, 1>(threads, a, stream);
-    case 2: return launch<MODEL, INTERP, 2>(threads, a, stream);
-    case 3: return launch<MODEL, INTERP, 3>(threads, a, stream);
+    case 1: return plan_path<MODEL, INTERP, 1>(threads, p);
+    case 2: return plan_path<MODEL, INTERP, 2>(threads, p);
+    case 3: return plan_path<MODEL, INTERP, 3>(threads, p);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int MODEL>
-cudaError_t dispatch_i(int interp, int c, int threads, const Args& a,
-                       cudaStream_t stream) {
+cudaError_t plan_i(int interp, int c, int threads, Plan& p) {
   switch (interp) {
-    case 0: return dispatch_c<MODEL, 0>(c, threads, a, stream);
-    case 1: return dispatch_c<MODEL, 1>(c, threads, a, stream);
-    case 2: return dispatch_c<MODEL, 2>(c, threads, a, stream);
+    case 0: return plan_c<MODEL, 0>(c, threads, p);
+    case 1: return plan_c<MODEL, 1>(c, threads, p);
+    case 2: return plan_c<MODEL, 2>(c, threads, p);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Checks fused_assemble_launch's arguments (n > 0) and plans its launch.
+cudaError_t make_plan(int model, int interp, int c, int threads, int chunk,
+                      const float* img, int hp, int wp, int img_h,
+                      int img_w, const float* pix, int p_len,
+                      const float* center, const float* params,
+                      const float* bbox, const int* idx, const int* count,
+                      int n, int num_subsets, int tile_h, int tile_w,
+                      float* work, long long work_floats, float* out,
+                      Plan& p) {
+  if (hp < tile_h || wp < tile_w || p_len <= 0 || chunk < 0 || model < 0 ||
+      model > 3)
+    return cudaErrorInvalidValue;
+  if (chunk == 0) chunk = p_len > kChunkMin ? kChunkPixels : p_len;
+  chunk = std::min(chunk, p_len);
+  const long long chunks = (p_len + chunk - 1) / chunk;
+  const long long nprod =
+      (num_params(model) + 2) * (num_params(model) + 3) / 2;
+  if (chunks > 1 && (n * chunks > INT32_MAX || !work ||
+                     work_floats < n * chunks * nprod))
+    return cudaErrorInvalidValue;
+  p.a = Args{img,    hp,     wp,     img_h,  img_w, pix,
+             p_len,  center, params, bbox,   idx,   count, n,
+             num_subsets, tile_h, tile_w, false, false, false,
+             1,      chunk,  (int)chunks, work, out};
+  switch (model) {
+    case 0: return plan_i<0>(interp, c, threads, p);
+    case 1: return plan_i<1>(interp, c, threads, p);
+    case 2: return plan_i<2>(interp, c, threads, p);
+    case 3: return plan_i<3>(interp, c, threads, p);
   }
   return cudaErrorInvalidValue;
 }
@@ -894,30 +935,56 @@ int fused_assemble_launch(int model, int interp, int c, int threads,
                           float* work, long long work_floats, float* out,
                           void* stream_ptr) {
   if (n <= 0) return 0;
-  if (hp < tile_h || wp < tile_w || p_len <= 0 || chunk < 0 || model < 0 ||
-      model > 3)
-    return (int)cudaErrorInvalidValue;
-  if (chunk == 0) chunk = p_len > kChunkMin ? kChunkPixels : p_len;
-  chunk = std::min(chunk, p_len);
-  const long long chunks = (p_len + chunk - 1) / chunk;
-  const long long nprod =
-      (num_params(model) + 2) * (num_params(model) + 3) / 2;
-  if (chunks > 1 && (n * chunks > INT32_MAX || !work ||
-                     work_floats < n * chunks * nprod))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Args a{img,    hp,     wp,     img_h,  img_w, pix,
-               p_len,  center, params, bbox,   idx,   count, n,
-               num_subsets, tile_h, tile_w, false, false, false,
-               1,      chunk,  (int)chunks, work, out};
-  switch (model) {
-    case 0: return dispatch_i<0>(interp, c, threads, a, stream);
-    case 1: return dispatch_i<1>(interp, c, threads, a, stream);
-    case 2: return dispatch_i<2>(interp, c, threads, a, stream);
-    case 3: return dispatch_i<3>(interp, c, threads, a, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = make_plan(
+      model, interp, c, threads, chunk, img, hp, wp, img_h, img_w, pix,
+      p_len, center, params, bbox, idx, count, n, num_subsets, tile_h,
+      tile_w, work, work_floats, out, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)issue(p, (cudaStream_t)stream_ptr);
 }
+
+// fused_assemble_launch in two halves, for a caller that launches K1 on
+// many lists with the same arguments otherwise: fused_assemble_plan
+// takes its arguments but the stream (n > 0), checks them, plans the
+// launch (the path, the grid, the shared memory and its opt-in) and
+// writes a plan into *plan, which fused_assemble_plan_free frees;
+// fused_assemble_issue launches the plan on the list `idx` of length
+// *count (the room n the plan was made for).  Each returns a
+// cudaError_t.  The launches equal fused_assemble_launch's.
+int fused_assemble_plan(int model, int interp, int c, int threads,
+                        int chunk, const float* img, int hp, int wp,
+                        int img_h, int img_w, const float* pix, int p_len,
+                        const float* center, const float* params,
+                        const float* bbox, const int* idx, const int* count,
+                        int n, int num_subsets, int tile_h, int tile_w,
+                        float* work, long long work_floats, float* out,
+                        void** plan) {
+  *plan = nullptr;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  Plan* p = new (std::nothrow) Plan;
+  if (!p) return (int)cudaErrorMemoryAllocation;
+  const cudaError_t e = make_plan(
+      model, interp, c, threads, chunk, img, hp, wp, img_h, img_w, pix,
+      p_len, center, params, bbox, idx, count, n, num_subsets, tile_h,
+      tile_w, work, work_floats, out, *p);
+  if (e != cudaSuccess) {
+    delete p;
+    return (int)e;
+  }
+  *plan = p;
+  return 0;
+}
+
+int fused_assemble_issue(void* plan, const int* idx, const int* count,
+                         void* stream_ptr) {
+  Plan& p = *static_cast<Plan*>(plan);
+  p.a.idx = idx;
+  p.a.count = count;
+  return (int)issue(p, (cudaStream_t)stream_ptr);
+}
+
+void fused_assemble_plan_free(void* plan) { delete static_cast<Plan*>(plan); }
 
 // The launcher's placement of a subset's tile on the path of `threads`
 // threads a subset, cut into `chunks` spans: 1 when it is staged in

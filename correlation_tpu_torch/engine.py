@@ -39,7 +39,8 @@ listed rows and writes the next list, the listed subsets still active,
 in the same launch; the positions past the list's length exit at once,
 which does the cascade's job.  So on the card a level enqueues its
 initial step and the JAX loop's step bound of max_iterations + 2
-iterations without one host sync, and a chained chunk of frame pairs
+iterations without one host sync, all issued by one call into the
+kernel library (ops/solve.lm_level), and a chained chunk of frame pairs
 (correlate_frames) enqueues whole, from the staged stack to the packed
 result.  A subset's trajectory depends on its own state alone, so this
 is the same arithmetic as the JAX loop (whose compaction is tested
@@ -75,7 +76,7 @@ from correlation_tpu_torch.ops.interp import (
     sample_integer,
 )
 from correlation_tpu_torch.ops.pyramid import build_pyramid
-from correlation_tpu_torch.ops.solve import LMState, lm_step
+from correlation_tpu_torch.ops.solve import LMState, lm_level, lm_step
 from correlation_tpu_torch.parallel.mesh import (
     Mesh,
     gather_rows,
@@ -213,13 +214,16 @@ def solve_level(
     device.  On the card the level's initial step and max_iterations + 2
     iterations (the JAX loop's step bound) enqueue without one host read,
     an iteration past the last active subset costing two launches that
-    exit at once; on the CPU the loop stops at the first empty list.  The
+    exit at once, and since their launches are then fixed before the first
+    is issued, one call into the kernel library (ops/solve.lm_level)
+    issues them all; on the CPU the loop stops at the first empty list.  The
     separable and field assemblies, plain torch over the list, take a
     host list instead (active_list every iteration, one sync each) and
     stop at the first empty one.  The results are the same.  While a
     utils.profiling recording is open, the list length of every step
     issued is handed to it (a device count by reference, read when the
-    recording closes).
+    recording closes), and the level is counted (utils.profiling
+    Recording.add_level).
     """
     assemble, device_list = _make_assemble(cfg, level, static)
     n_points = level.n_points.contiguous()
@@ -241,6 +245,9 @@ def solve_level(
         return True
 
     steps = cfg.max_iterations + 3  # the initial step and JAX's step bound
+    # A device list on the card: the level's launches are fixed before the
+    # first is issued, and one call into the kernel library issues them.
+    native = device_list and params0.device.type == "cuda"
     if device_list:
         # Entries past a list's count stay valid subset indices (zero, or
         # an older list's), which the CPU assembly checks.
@@ -250,12 +257,18 @@ def solve_level(
                              device=params0.device)
         cur = active_list(~skip, True)
         first, issued = cur[1], steps
-        for k in range(steps):
-            nxt = (lists[k % 2], counts[k])
-            if not step(*cur, k == 0, nxt):
-                issued = k
-                break
-            cur = nxt
+        if native:
+            lm_level(cfg, state, (static.tile_h, static.tile_w, static.img_h,
+                                  static.img_w, level.def_img, level.pix),
+                     scaling, n_points, bbox, center, level.img_hw, *cur,
+                     lists, counts)
+        else:
+            for k in range(steps):
+                nxt = (lists[k % 2], counts[k])
+                if not step(*cur, k == 0, nxt):
+                    issued = k
+                    break
+                cur = nxt
         if lengths is not None and issued:
             # Step k's list length, on the device: the first list's count
             # for k = 0, counts[k - 1] after.
@@ -267,6 +280,7 @@ def solve_level(
                 break
     if rec is not None:
         rec.add_lengths(lengths)
+        rec.add_level(native)
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 

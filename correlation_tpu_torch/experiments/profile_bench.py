@@ -8,8 +8,9 @@ row, 4096 21x21 subsets, AFFINE / BICUBIC, pyramid levels 2-1-0) it times
   - solve_level per pyramid level, with the mean iterations reached: its
     wall (host issue and the card's work, to the last kernel's end) and
     the host's issue alone (the call returns before the card is done,
-    since the LM loop reads nothing back), each also per LM iteration
-    (the initial step and max_iterations + 2 iterations a level),
+    since the LM loop reads nothing back; one call into the kernel
+    library issues the level's steps), each also per LM iteration (the
+    initial step and max_iterations + 2 iterations a level),
   - the fused assembly (K1) per level, 20 launches chained through their
     parameters (each adds 1e-9 b to them), replayed from a CUDA graph,
   - ops/solve.lm_delta alone, 50 calls chained the same way (from a CUDA
@@ -18,23 +19,18 @@ row, 4096 21x21 subsets, AFFINE / BICUBIC, pyramid levels 2-1-0) it times
     problems.lm_step_problem, the whole list with its length on the
     device and the next list written, as the LM loop launches it (from a
     CUDA graph of 50, and issued eagerly), beside lm_delta,
-  - an LM iteration whose list is empty, as the loop issues it: K1 and
-    the LM step over an empty device list at level 0, every launch
-    exiting at once (the step writing a zero count): device time from a
+  - an LM iteration whose list is empty, as the per-step wrappers issue
+    it: K1 and the LM step over an empty device list at level 0, every
+    launch exiting at once (the step writing a zero count): device time from a
     CUDA graph of 20, and the host's issue a call; beside it the device
     time of the form before the step wrote the next list, active_list +
     K1 + the step, from a graph,
-  - solve_level at level 0 with the assembly replaced by a stub that
-    returns a fixed, well-conditioned system (identity A, constant b, a
-    chi that falls slowly, so that every subset runs max_iterations
-    steps): the loop without the assembly,
   - the device's busy share of an 8-pair chunk (correlate_frames):
     torch.profiler's device time of every kernel and copy over the
     chunk's wall.
-The stub is installed here alone, over assemble_v2.fused_assemble, and
-removed before the function returns.  Eager calls are timed between two
-CUDA events after a warm call (utils/profiling.cuda_time_ms): the
-host's issue and its waits included, as a caller sees them.
+Eager calls are timed between two CUDA events after a warm call
+(utils/profiling.cuda_time_ms): the host's issue and its waits
+included, as a caller sees them.
 
 Run on a machine with an NVIDIA GPU:
 
@@ -52,29 +48,6 @@ import numpy as np
 import torch
 
 NUM_SUBSETS = 4096
-
-
-def _stub_assemble(calls: list):
-    """A fused_assemble stand-in: A = I, b = 1 in every row, chi =
-    1e6 / (1 + |p|^2), no bad pixel.  Every step then moves each parameter
-    by about 1 and lowers chi by a relative 2 / k or so at step k, far
-    above the 1e-3 precision at the dense grid's 441 px a subset, so
-    every subset runs max_iterations steps.  It counts its calls into
-    `calls`."""
-
-    def stub(model, interp, tile_h, tile_w, img_h, img_w, img, pix, center,
-             params, bbox, idx=None, count=None):
-        p = params if idx is None else params[idx.long()]
-        n, num_p = p.shape
-        out = torch.zeros((n, 8, 8), dtype=torch.float32, device=p.device)
-        out[:, :num_p, :num_p] = torch.eye(num_p, device=p.device)
-        out[:, :num_p, num_p] = 1.0
-        out[:, num_p, :num_p] = 1.0
-        out[:, num_p, num_p] = 1e6 / (1.0 + (p * p).sum(dim=-1))
-        calls.append(n)
-        return out
-
-    return stub
 
 
 def main() -> dict[str, float]:
@@ -245,25 +218,6 @@ def main() -> dict[str, float]:
           f"{times['empty_iteration_issue']:.4f} ms host issue; with "
           f"active_list first (the form before the step wrote the list): "
           f"{times['empty_iteration_sorted']:.4f} ms device")
-
-    # The host loop's floor: solve_level with the assembly stubbed.
-    calls: list = []
-    orig = v2.fused_assemble
-    v2.fused_assemble = _stub_assemble(calls)
-    try:
-        times["stub_solve_L0"] = cuda_time_ms(
-            lambda: solve_level(cfg, levels[0], p0, skip, statics[0]), 5)
-        calls.clear()
-        res = solve_level(cfg, levels[0], p0, skip, statics[0])
-        torch.cuda.synchronize()
-    finally:
-        v2.fused_assemble = orig
-    loops = len(calls) - 1  # the first call is the initial assembly
-    times["stub_ms_per_iteration"] = times["stub_solve_L0"] / max(loops, 1)
-    print(f"solve_level L0 w/ stub assembly: {times['stub_solve_L0']:9.3f} ms "
-          f"({loops} loop iterations, "
-          f"{times['stub_ms_per_iteration']:.3f} ms each; iters reached: "
-          f"{res.reached.float().mean():.2f})")
 
     busy = chunk_busy_share(cfg, und, dfm, batch, params0, dev,
                             correlate_frames)

@@ -26,8 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = [
     _PKG / "csrc" / name
-    for name in ("fused_assemble.cu", "lm_step.cu", "exp_gather.cu",
-                 "exp_stages.cu")
+    for name in ("fused_assemble.cu", "lm_step.cu", "lm_level.cu",
+                 "exp_gather.cu", "exp_stages.cu")
 ]
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = [
@@ -132,8 +132,9 @@ def load_library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.fused_assemble_launch.restype = i32
-            lib.fused_assemble_launch.argtypes = [
+            f32 = ctypes.c_float
+            # fused_assemble_launch's arguments before the stream.
+            k1 = [
                 i32, i32, i32, i32, i32,  # model, interp, channels, threads, chunk
                 vp, i32, i32, i32, i32,  # img, hp, wp, img_h, img_w
                 vp, i32,  # pix, p_len
@@ -141,17 +142,28 @@ def load_library():
                 vp, vp, i32, i32,  # idx, count, n, num_subsets
                 i32, i32,  # tile_h, tile_w
                 vp, ctypes.c_longlong,  # work, work_floats
-                vp, vp,  # out, stream
+                vp,  # out
             ]
-            f32 = ctypes.c_float
-            lib.lm_step_launch.restype = i32
-            lib.lm_step_launch.argtypes = [
-                i32, i32, vp, vp, vp, i32, i32,  # model, init, out, idx, count, n, S
+            # lm_step_launch's state arguments, scaling to max_iterations.
+            state = [
                 vp, vp, vp, vp, i32, i32,  # scaling, n_points, bbox, center, img_h, img_w
                 vp, vp, vp, vp, vp,  # p_cur, p_lg, ab, lam, chi_lg
                 vp, vp, vp, vp, vp,  # iteration, reached, error, active, init_fail
                 f32, f32, f32, f32, f32, i32,  # precision, lambda_min/max/up/down, max_iterations
+            ]
+            lib.fused_assemble_launch.restype = i32
+            lib.fused_assemble_launch.argtypes = k1 + [vp]  # stream
+            lib.lm_step_launch.restype = i32
+            lib.lm_step_launch.argtypes = [
+                i32, i32, vp, vp, vp, i32, i32,  # model, init, out, idx, count, n, S
+                *state,
                 vp, vp, vp, i32,  # idx_next, count_next, flags, flag_capacity
+                vp,  # stream
+            ]
+            lib.lm_level_launch.restype = i32
+            lib.lm_level_launch.argtypes = k1 + state + [
+                vp, i32,  # flags, flag_capacity
+                vp, vp, i32, vp,  # lists, counts, steps, failed (int[2])
                 vp,  # stream
             ]
             lib.lm_step_flags.restype = i32

@@ -500,7 +500,6 @@ def fused_assemble(
     [0, S) raises IndexError on the CPU; on the card it stops the kernel
     like a device-side assert, and the next synchronising call raises.
     """
-    global LAUNCHES
     _check_inputs(img, pix, center, params, bbox, idx, tile_h, tile_w,
                   count)
     if img.device.type == "cpu":
@@ -517,12 +516,29 @@ def fused_assemble(
     out = torch.empty((n, 8, 8), dtype=torch.float32, device=img.device)
     if n == 0:
         return out
+    args, work = launch_args(model, interp, tile_h, tile_w, img_h, img_w,
+                             img, pix, center, params, bbox, idx, count, out)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    rc = lib.fused_assemble_launch(*args, ctypes.c_void_p(stream))
+    check_launch(rc, "fused_assemble")
+    count_launches(pix.shape[2], tile_h, tile_w, n)
+    return out
+
+
+def launch_args(model, interp, tile_h, tile_w, img_h, img_w, img, pix,
+                center, params, bbox, idx, count, out):
+    """(the kernel library's fused_assemble_launch arguments but the
+    stream, the split path's workspace or None): K1 over the list idx
+    (all subsets when None) of length count into `out` [n, 8, 8], n > 0,
+    on the inputs fused_assemble has checked.  The arguments point into
+    the workspace: hold it until the launch is enqueued."""
+    n = out.shape[0]
     hp, wp, channels = img.shape
     p_len = pix.shape[2]
     work = span_workspace(n, params.shape[1], subset_chunks(p_len),
                           img.device)
     ptr = ctypes.c_void_p
-    rc = lib.fused_assemble_launch(
+    return (
         int(model), int(interp), channels, subset_threads(p_len),
         0,  # the launcher's split rule (kChunkMin, kChunkPixels)
         ptr(img.data_ptr()), hp, wp, int(img_h), int(img_w),
@@ -534,12 +550,17 @@ def fused_assemble(
         int(tile_h), int(tile_w),
         ptr(work.data_ptr() if work is not None else None),
         0 if work is None else work.numel(), ptr(out.data_ptr()),
-        ptr(torch.cuda.current_stream(img.device).cuda_stream),
-    )
-    check_launch(rc, "fused_assemble")
-    LAUNCHES += 1
+    ), work
+
+
+def count_launches(p_len: int, tile_h: int, tile_w: int, n: int,
+                   launches: int = 1) -> None:
+    """Add `launches` launches over n list positions of subsets of p_len
+    padded pixels and (tile_h, tile_w) tiles to LAUNCHES and
+    LAUNCHES_BY_SHAPE."""
+    global LAUNCHES
+    LAUNCHES += launches
     counts = LAUNCHES_BY_SHAPE.setdefault((p_len, int(tile_h), int(tile_w)),
                                           [0, 0])
-    counts[0] += 1
-    counts[1] += n
-    return out
+    counts[0] += launches
+    counts[1] += launches * n

@@ -389,27 +389,18 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
         if count_next is not None:
             count_next.zero_()
         return
-    ptr = ctypes.c_void_p
-    st = state
-    img_h, img_w = img_hw
-    if (out.data_ptr() | st.ab.data_ptr()) % 16:
+    if (out.data_ptr() | state.ab.data_ptr()) % 16:
         raise ValueError("out and ab must be 16-byte aligned (the kernel "
                          "reads their rows 16 bytes at a time)")
     lib = load_library()
     ws, flags = (None, 0) if idx_next is None else _workspace(lib, dev, n)
+    ptr = ctypes.c_void_p
     rc = lib.lm_step_launch(
         int(cfg.model), int(bool(init)), ptr(out.data_ptr()),
         ptr(idx.data_ptr()),
         ptr(count.data_ptr() if count is not None else None), n,
-        st.p_cur.shape[0], ptr(scaling.data_ptr()), ptr(n_points.data_ptr()),
-        ptr(bbox.data_ptr()), ptr(center.data_ptr()), int(img_h), int(img_w),
-        ptr(st.p_cur.data_ptr()), ptr(st.p_lg.data_ptr()),
-        ptr(st.ab.data_ptr()), ptr(st.lam.data_ptr()),
-        ptr(st.chi_lg.data_ptr()), ptr(st.iteration.data_ptr()),
-        ptr(st.reached.data_ptr()), ptr(st.error.data_ptr()),
-        ptr(st.active.data_ptr()), ptr(st.init_fail.data_ptr()),
-        cfg.precision, cfg.lambda_min, cfg.lambda_max, cfg.lambda_up,
-        cfg.lambda_down, int(cfg.max_iterations),
+        state.p_cur.shape[0],
+        *_state_args(cfg, state, scaling, n_points, bbox, center, img_hw),
         ptr(None if ws is None else idx_next.data_ptr()),
         ptr(None if ws is None else count_next.data_ptr()),
         ptr(None if ws is None else ws.data_ptr()),
@@ -418,3 +409,98 @@ def lm_step(cfg: SolverConfig, state: LMState, out, idx, count, scaling,
     )
     check_launch(rc, "lm_step")
     LAUNCHES += 1
+
+
+def _state_args(cfg: SolverConfig, state: LMState, scaling, n_points, bbox,
+                center, img_hw) -> tuple:
+    """The kernel library's lm_step_launch arguments from `scaling` to
+    `max_iterations`: the level's inputs, the state and the constants."""
+    ptr = ctypes.c_void_p
+    st = state
+    img_h, img_w = img_hw
+    return (
+        ptr(scaling.data_ptr()), ptr(n_points.data_ptr()),
+        ptr(bbox.data_ptr()), ptr(center.data_ptr()), int(img_h), int(img_w),
+        ptr(st.p_cur.data_ptr()), ptr(st.p_lg.data_ptr()),
+        ptr(st.ab.data_ptr()), ptr(st.lam.data_ptr()),
+        ptr(st.chi_lg.data_ptr()), ptr(st.iteration.data_ptr()),
+        ptr(st.reached.data_ptr()), ptr(st.error.data_ptr()),
+        ptr(st.active.data_ptr()), ptr(st.init_fail.data_ptr()),
+        cfg.precision, cfg.lambda_min, cfg.lambda_max, cfg.lambda_up,
+        cfg.lambda_down, int(cfg.max_iterations),
+    )
+
+
+def lm_level(cfg: SolverConfig, state: LMState, assembly, scaling,
+             n_points, bbox, center, img_hw, idx, count, lists,
+             counts) -> None:
+    """A pyramid level's LM loop on the card, on a device list, in one
+    call into the kernel library: the initial step and counts.shape[0] - 1
+    iterations, each the fused assembly (assemble_v2.fused_assemble) of
+    the current list at state.p_cur and lm_step on it, which writes the
+    next list.  The same launches, in the same order and with the same
+    arguments, as that loop issued step by step from Python, so the same
+    results; nothing is read back.
+
+    assembly: the fused assembly's inputs after its model and
+    interpolation and before its center, (tile_h, tile_w, img_h, img_w,
+    img, pix); it reads `center` and `bbox` as the step does.  idx, count:
+    the first list (int32 [n], its length int32 [1] on the device); lists:
+    int32 [2, n], the rows that alternate as the next list (step k writes
+    row k % 2); counts: int32 [steps, 1], step k's next length in row k.
+    The other arguments are lm_step's.  Every tensor is checked once, as
+    the wrappers check them at each step.  Adds the launches to
+    assemble_v2's and this module's counters.  CUDA tensors only.
+    """
+    global LAUNCHES
+    from correlation_tpu_torch.ops import assemble_v2 as v2
+
+    tile_h, tile_w, img_h, img_w, img, pix = assembly
+    n = idx.shape[0]
+    steps = counts.shape[0]
+    for name, t, shape in (("lists", lists, (2, n)),
+                           ("counts", counts, (steps, 1))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 "
+                             f"{list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}")
+    if steps < 1 or count is None:
+        raise ValueError("a level needs a step and a device list (count)")
+    v2._check_inputs(img, pix, center, state.p_cur, bbox, idx, tile_h,
+                     tile_w, count)
+    dev = state.p_cur.device
+    if dev.type != "cuda":
+        raise ValueError(f"lm_level runs on a CUDA device, not {dev}")
+    if n == 0:
+        counts.zero_()
+        return
+    out = torch.empty((n, 8, 8), dtype=torch.float32, device=dev)
+    _check_step(state, out, idx, count, scaling, n_points, bbox, center,
+                lists[0], counts[0])
+    if (out.data_ptr() | state.ab.data_ptr()) % 16:
+        raise ValueError("out and ab must be 16-byte aligned (the kernel "
+                         "reads their rows 16 bytes at a time)")
+    from correlation_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    ws, flags = _workspace(lib, dev, n)
+    k1, work = v2.launch_args(cfg.model, cfg.interpolation, tile_h, tile_w,
+                              img_h, img_w, img, pix, center, state.p_cur,
+                              bbox, idx, count, out)
+    failed = (ctypes.c_int * 2)()
+    ptr = ctypes.c_void_p
+    rc = lib.lm_level_launch(
+        *k1, *_state_args(cfg, state, scaling, n_points, bbox, center,
+                          img_hw),
+        ptr(ws.data_ptr()), flags, ptr(lists.data_ptr()),
+        ptr(counts.data_ptr()), steps, failed,
+        ptr(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if rc != 0:
+        what = "lm_step" if failed[1] else "fused_assemble"
+        msg = lib.fused_assemble_error_string(rc).decode()
+        raise RuntimeError(f"lm_level: step {failed[0]} of {steps}, "
+                           f"{what} kernel launch failed: {msg}")
+    v2.count_launches(pix.shape[2], tile_h, tile_w, n, steps)
+    LAUNCHES += steps

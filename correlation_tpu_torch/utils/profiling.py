@@ -4,11 +4,11 @@ trace_region and start_trace / stop_trace are the JAX package's profiler
 hooks on torch.profiler: a region is a record_function range while a
 profiler runs, and a trace is a Chrome trace file.  recording() keeps the
 same regions in memory instead (spans on the host's clock, with their
-parents) and counts the LM loop's steps and empty steps, for a caller
-that reads them itself.  With neither open, a region costs one flag check
-and one query of the profiler's state.  The span names the program opens
-are the constants below; traced and trace_each open them around a
-function's calls and a loop's passes.
+parents) and counts the LM loop's steps and empty steps and its levels,
+for a caller that reads them itself.  With neither open, a region costs
+one flag check and one query of the profiler's state.  The span names
+the program opens are the constants below; traced and trace_each open
+them around a function's calls and a loop's passes.
 
 SolveMeter is the JAX package's always-on solves/s meter
 (correlation_tpu/utils/profiling.py).  It reads the host's clock around
@@ -66,14 +66,17 @@ class Span:
 class Recording:
     """What recording() collects: `spans` in the order they opened, and
     `counters`: `steps`, the LM steps issued, and `empty_steps`, those
-    issued on an empty list.  A step's list length may be a device
-    tensor; such lengths are read when the recording closes."""
+    issued on an empty list; `levels`, the pyramid levels' LM loops
+    issued, and `native_levels`, those issued by one call into the
+    kernel library.  A step's list length may be a device tensor; such
+    lengths are read when the recording closes."""
 
     def __init__(self):
         self.spans: list[Span] = []
         self.counters: dict[str, int] = {}
         self._open: list[int] = []
         self._lengths: list = []  # ints, and int32 tensors of lengths
+        self._levels = [0, 0]  # levels, native levels
 
     @contextlib.contextmanager
     def _span(self, name: str):
@@ -93,6 +96,12 @@ class Recording:
         until the recording closes."""
         self._lengths += lengths
 
+    def add_level(self, native: bool) -> None:
+        """One pyramid level's LM loop issued; `native`: by one call into
+        the kernel library."""
+        self._levels[0] += 1
+        self._levels[1] += bool(native)
+
     def _resolve(self) -> None:
         """Read every deferred length (one copy to the host) and count the
         steps and the empty ones."""
@@ -100,7 +109,9 @@ class Recording:
         lengths = torch.cat(tensors).tolist() if tensors else []
         lengths += [int(x) for x in self._lengths if not torch.is_tensor(x)]
         self.counters = {"steps": len(lengths),
-                         "empty_steps": lengths.count(0)}
+                         "empty_steps": lengths.count(0),
+                         "levels": self._levels[0],
+                         "native_levels": self._levels[1]}
         self._lengths = []
 
 

@@ -1,8 +1,9 @@
 """The port's spans and LM-step counters (utils/profiling.py): trace_region
 off, under a torch profiler and under recording(); the spans run_sequence
 and the engine open, with their parents; the list lengths the LM loop
-hands a recording, against a count taken around ops/solve.lm_step; and
-records unchanged by a recording."""
+hands a recording, against a count taken around ops/solve.lm_step; the
+levels counted, and those issued by one native call; and records
+unchanged by a recording."""
 
 import dataclasses
 import json
@@ -162,8 +163,10 @@ def test_counters_equal_the_steps_issued(monkeypatch, problem, backend):
     monkeypatch.setattr(engine, "lm_step", counted)
     with profiling.recording() as rec:
         _run(problem, PAIRS + 1, backend)
-    assert rec.counters == {"steps": len(issued), "empty_steps": 0}
-    assert len(issued) > PAIRS * _levels(problem) and 0 not in issued
+    levels = PAIRS * _levels(problem)
+    assert rec.counters == {"steps": len(issued), "empty_steps": 0,
+                            "levels": levels, "native_levels": 0}
+    assert len(issued) > levels and 0 not in issued
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
@@ -189,6 +192,27 @@ def test_empty_lengths_count_as_empty_steps():
                              torch.zeros((0, 1), dtype=torch.int32), 0])
         rec.add_lengths([torch.tensor([2], dtype=torch.int32)])
         assert rec.counters == {}  # nothing read while open
-    assert rec.counters == {"steps": 6, "empty_steps": 2}
+    assert rec.counters == {"steps": 6, "empty_steps": 2, "levels": 0,
+                            "native_levels": 0}
     (span,) = rec.spans
     assert span.name == profiling.ENGINE_SOLVE_LEVEL and span.parent is None
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_levels_counted_on_the_cpu(problem, path):
+    """Every solve_level under a recording is a level; on the CPU none is
+    issued by the one native call (the card's path)."""
+    with profiling.recording() as rec:
+        _run(problem, PATHS[path][0])
+    assert rec.counters["levels"] == PAIRS * _levels(problem)
+    assert rec.counters["native_levels"] == 0
+
+
+def test_native_levels_counted():
+    with profiling.recording() as rec:
+        rec.add_level(True)
+        rec.add_level(False)
+        rec.add_level(True)
+        assert rec.counters == {}
+    assert rec.counters == {"steps": 0, "empty_steps": 0, "levels": 3,
+                            "native_levels": 2}

@@ -26,13 +26,17 @@ from correlation_tpu_torch.engine import active_list, correlate_frames
 from correlation_tpu_torch.ops import assemble_v2 as v2
 from correlation_tpu_torch.ops import solve
 from correlation_tpu_torch.ops.pyramid import build_pyramid
+from correlation_tpu_torch.domains import annular_batch, blob_batch
 from correlation_tpu_torch.problems import (
     LM_STEP_LISTS,
+    annular_problem,
     assembly_levels,
+    blob_problem,
     dense_grid_problem,
     lm_step_list,
     lm_step_problem,
 )
+from correlation_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +271,147 @@ def test_subsetbatch_on_card_is_not_copied(dev):
     gb = batch.to_device(dev)
     again = SubsetBatch.to_device(gb, dev)
     assert all(a.data_ptr() == b.data_ptr() for a, b in zip(gb.xy, again.xy))
+
+
+@functools.lru_cache(maxsize=None)
+def _levels_of(kind):
+    """(cfg, levels, statics) of the dense grid (4096 subsets), the
+    benchmark's annulus (512 sectors) or a blob (K1's split path at every
+    level) on a pair of 1 MP frames, on the card."""
+    dev = torch.device("cuda")
+    if kind == "grid":
+        cfg, und, dfm, batch, _ = dense_grid_problem(4096)
+        pair = np.stack([und, dfm])[..., None]
+    else:
+        make, split = {"annulus": (annular_problem, annular_batch),
+                       "blob": (blob_problem, blob_batch)}[kind]
+        cfg, frames, _, dom = make(1)
+        batch = split(dom, cfg.pyramid.stop)
+        pair = frames[:2].astype(np.float32)
+    pyr = build_pyramid(torch.as_tensor(pair, device=dev), cfg.pyramid.stop)
+    statics = engine.compute_level_statics(cfg, batch, [p[1] for p in pyr])
+    gb = batch.to_device(dev)
+    levels = engine.prepare_levels(cfg, [p[0] for p in pyr],
+                                   [p[1] for p in pyr], gb.xy, gb.mask,
+                                   gb.center0, statics)
+    return cfg, levels, statics
+
+
+def _guesses(n, lvl, dev, seed=1):
+    """assembly_levels' parameters: the motion with noise, subset 7 (where
+    there is one) warped out of the image."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((n, 6), np.float32)
+    p[:, :2] = rng.normal(0, 0.3, (n, 2))
+    p[:, 1] += 1.0 / (1 << lvl)
+    p[:, 2:] = rng.normal(0, 0.003, (n, 4))
+    if n > 7:
+        p[7, 0] = 4000.0
+    return torch.as_tensor(p, device=dev)
+
+
+def _stepwise_level(cfg, level, params0, skip, static):
+    """solve_level's device-list loop as the per-step wrappers issue it:
+    (LevelResult, counts, each step's list length)."""
+    state = solve.LMState.start(cfg, params0)
+    n_points = level.n_points.contiguous()
+    scaling = torch.where(n_points > 0, 1.0 / n_points.clamp(min=1.0), 0.0)
+    bbox, center = level.bbox.contiguous(), level.center.contiguous()
+    s, steps = params0.shape[0], cfg.max_iterations + 3
+    lists = torch.zeros((2, s), dtype=torch.int32, device=params0.device)
+    counts = torch.empty((steps, 1), dtype=torch.int32,
+                         device=params0.device)
+    idx, count = active_list(~skip, True)
+    lengths = [count]
+    for k in range(steps):
+        out = v2.fused_assemble(cfg.model, cfg.interpolation, static.tile_h,
+                                static.tile_w, static.img_h, static.img_w,
+                                level.def_img, level.pix, level.center,
+                                state.p_cur, level.bbox, idx, count)
+        solve.lm_step(cfg, state, out, idx, count, scaling, n_points, bbox,
+                      center, level.img_hw, k == 0, lists[k % 2], counts[k])
+        idx, count = lists[k % 2], counts[k]
+        lengths.append(count)
+    res = engine.LevelResult(state.p_cur, state.chi_lg, state.reached,
+                             state.error, state.init_fail)
+    return res, counts, torch.cat(lengths[:steps]).tolist()
+
+
+def _launches():
+    return (v2.LAUNCHES, solve.LAUNCHES,
+            {k: list(v) for k, v in v2.LAUNCHES_BY_SHAPE.items()})
+
+
+@pytest.mark.parametrize("kind, lvl, skipped", [
+    ("grid", 0, False), ("grid", 2, False), ("annulus", 0, False),
+    ("annulus", 2, False), ("grid", 1, True), ("annulus", 1, True),
+    ("blob", 0, False), ("blob", 2, False)])
+def test_native_level_equals_the_stepwise_loop(dev, monkeypatch, kind, lvl,
+                                               skipped):
+    """solve_level's one call against the level's 53 steps issued through
+    v2.fused_assemble and lm_step: the LevelResult and the counts buffer
+    bit for bit, the launch counters and the recording's counters the
+    same.  The blob takes K1's split path."""
+    cfg, levels, statics = _levels_of(kind)
+    level, static = levels[lvl], statics[lvl]
+    s = level.pix.shape[0]
+    if kind == "blob":
+        assert v2.subset_chunks(level.pix.shape[2]) > 1
+    p0 = _guesses(s, lvl, dev)
+    skip = torch.zeros(s, dtype=torch.bool, device=dev)
+    if skipped:
+        skip[torch.randperm(s, generator=torch.Generator().manual_seed(3))[
+            :s // 3].to(dev)] = True
+    v2.reset_launches()
+    solve.reset_launches()
+    want, want_counts, lengths = _stepwise_level(cfg, level, p0, skip,
+                                                 static)
+    stepwise = _launches()
+    captured = []
+    real = engine.lm_level
+
+    def capture(*args):
+        captured.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(engine, "lm_level", capture)
+    v2.reset_launches()
+    solve.reset_launches()
+    with profiling.recording() as rec:
+        got = engine.solve_level(cfg, level, p0, skip, static)
+    assert _launches() == stepwise
+    assert stepwise[:2] == (cfg.max_iterations + 3,) * 2
+    (counts,) = captured
+    torch.cuda.synchronize()
+    for name, a in got._asdict().items():
+        assert same_bits(a, want._asdict()[name]), name
+    assert torch.equal(counts, want_counts)
+    assert rec.counters == {"steps": cfg.max_iterations + 3,
+                            "empty_steps": lengths.count(0), "levels": 1,
+                            "native_levels": 1}
+    assert lengths[0] == int((~skip).sum())
+
+
+@pytest.mark.parametrize("fault, what", [("k1", "fused_assemble"),
+                                         ("step", "lm_step")])
+def test_native_level_names_the_failing_step(dev, monkeypatch, fault, what):
+    """An argument the library refuses (K1 on a path it has not, a scan
+    workspace too small) raises, naming the step and the kernel."""
+    cfg, levels, statics = _levels_of("grid")
+    p0 = _guesses(4096, 2, dev)
+    skip = torch.zeros(4096, dtype=torch.bool, device=dev)
+    if fault == "k1":
+        real = v2.launch_args
+
+        def bad_path(*args):
+            k1, work = real(*args)
+            return (*k1[:3], 7, *k1[4:]), work  # 7 threads a subset
+
+        monkeypatch.setattr(v2, "launch_args", bad_path)
+    else:
+        real = solve._workspace
+        monkeypatch.setattr(solve, "_workspace",
+                            lambda lib, d, n: (real(lib, d, n)[0], 0))
+    with pytest.raises(RuntimeError, match=f"step 0 of 53, {what} kernel"):
+        engine.solve_level(cfg, levels[2], p0, skip, statics[2])
+    torch.cuda.synchronize()

@@ -91,11 +91,11 @@ def test_recording_counts_the_card_steps(monkeypatch):
     """On a grid of the benchmark's size (4096 subsets, 1 MP frames): a
     recording counts every LM-step launch (53 a level, 159 a pair), its
     empty steps are the zero lengths the card's count rows hold (read
-    here from copies taken as each step is issued), and the records equal
-    a run's without a recording bit for bit."""
+    here from copies taken as each level is issued), every level is
+    issued by the one native call, and the records equal a run's without
+    a recording bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    from correlation_tpu_torch import engine
     from correlation_tpu_torch.ops import solve
     from correlation_tpu_torch.utils import profiling
 
@@ -105,22 +105,25 @@ def test_recording_counts_the_card_steps(monkeypatch):
     plain = run_sequence(list(frames), pts, scfg, centers=centers,
                          device="cuda")
     seen = []
-    real = engine.lm_step
+    real = profiling.Recording.add_lengths
 
-    def copied(cfg, state, out, idx, count, *args):
-        seen.append(count.clone())
-        return real(cfg, state, out, idx, count, *args)
+    def copied(self, lengths):
+        seen.extend(x.reshape(-1).clone() for x in lengths)
+        return real(self, lengths)
 
-    monkeypatch.setattr(engine, "lm_step", copied)
+    monkeypatch.setattr(profiling.Recording, "add_lengths", copied)
     before = solve.LAUNCHES
     with profiling.recording() as rec:
         recorded = run_sequence(list(frames), pts, scfg, centers=centers,
                                 device="cuda")
-    steps = (cfg.max_iterations + 3) * len(cfg.pyramid.levels_coarse_to_fine())
+    levels = len(cfg.pyramid.levels_coarse_to_fine())
+    steps = (cfg.max_iterations + 3) * levels
     assert rec.counters["steps"] == solve.LAUNCHES - before == steps * pairs
     lengths = torch.cat(seen).tolist()
     assert rec.counters["empty_steps"] == lengths.count(0) > 0
     assert len(lengths) == rec.counters["steps"]
+    assert rec.counters["levels"] == rec.counters["native_levels"] == (
+        levels * pairs)
     for a, b in zip(plain, recorded):
         np.testing.assert_array_equal(a.params, b.params)
         np.testing.assert_array_equal(a.chi, b.chi)
