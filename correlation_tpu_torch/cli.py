@@ -359,7 +359,8 @@ def _run(args, mesh) -> int:
         sector_centers = (
             centers
             if centers is not None
-            else np.array([p.mean(axis=0) for p in point_lists], np.float32)
+            else np.array([p.mean(axis=0, dtype=np.float64)
+                           for p in point_lists], np.float32)
         )
         per_sector_guess = phase_correlation_guess(
             load_image(args.images[0], not args.color),

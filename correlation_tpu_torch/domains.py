@@ -151,8 +151,10 @@ def make_batch(
         pad_to=pad_to[0] if pad_to else None,
     )
     if centers is None:
+        # Summed in float64: a float32 sum, one point at a time, drifts
+        # by tenths of a pixel over a subset of 10^5 points.
         n = np.maximum(mask0.sum(axis=1), 1)[:, None]
-        centers = (xy0 * mask0[..., None]).sum(axis=1) / n
+        centers = (xy0 * mask0[..., None]).sum(axis=1, dtype=np.float64) / n
     xs, ms = decimate_levels(xy0, mask0, list(range(max_level + 1)), pad_to)
     return SubsetBatch(
         xs, ms, np.asarray(centers, np.float32),

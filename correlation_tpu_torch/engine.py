@@ -223,7 +223,8 @@ def solve_level(
     utils.profiling recording is open, the list length of every step
     issued is handed to it (a device count by reference, read when the
     recording closes), and the level is counted (utils.profiling
-    Recording.add_level).
+    Recording.add_level), with whether its fused assembly takes K1's
+    split path.
     """
     assemble, device_list = _make_assemble(cfg, level, static)
     n_points = level.n_points.contiguous()
@@ -280,7 +281,8 @@ def solve_level(
                 break
     if rec is not None:
         rec.add_lengths(lengths)
-        rec.add_level(native)
+        rec.add_level(native, device_list
+                      and v2.subset_chunks(level.pix.shape[-1]) > 1)
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 

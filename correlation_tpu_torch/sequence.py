@@ -76,6 +76,7 @@ from correlation_tpu_torch.models.warp import warp_points
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_flag
 from correlation_tpu_torch.utils.profiling import (
+    SEQ_ADVANCE,
     SEQ_DISPATCH,
     SEQ_EMIT,
     SEQ_FETCH,
@@ -180,7 +181,8 @@ def initial_track_state(
     explicit = centers is not None
     if centers is None:
         centers = np.array(
-            [p.mean(axis=0) for p in point_lists], np.float32
+            [p.mean(axis=0, dtype=np.float64) for p in point_lists],
+            np.float32,
         )
     guess = np.tile(np.asarray(global_guess, np.float32), (s, 1))
     if per_sector_uv is not None:
@@ -272,32 +274,33 @@ def advance_domain(
     if deform == DeformationDescription.EULERIAN:
         return
     # Lagrangian family: the domain follows the material.
-    state.und_global_center = state.def_global_center.copy()
-    state.und_global_angle = state.def_global_angle
-    state.und_e = state.def_e.copy()
-    state.und_global_e = state.def_global_e
-    state.past_und_center = state.und_center.copy()
-    new_center = state.def_center.copy()
-    if deform == DeformationDescription.LAGRANGIAN:
-        # Whole-pixel translate by the rounded center offset.
-        offset = new_center - state.past_und_center
-        state.und_points = [
-            _round_points(p + offset[i])
-            for i, p in enumerate(state.und_points)
-        ]
-        if state.und_contours is not None:
-            state.und_contours = [
-                _round_points(c + offset[i])
-                for i, c in enumerate(state.und_contours)
+    with trace_region(SEQ_ADVANCE):
+        state.und_global_center = state.def_global_center.copy()
+        state.und_global_angle = state.def_global_angle
+        state.und_e = state.def_e.copy()
+        state.und_global_e = state.def_global_e
+        state.past_und_center = state.und_center.copy()
+        new_center = state.def_center.copy()
+        if deform == DeformationDescription.LAGRANGIAN:
+            # Whole-pixel translate by the rounded center offset.
+            offset = new_center - state.past_und_center
+            state.und_points = [
+                _round_points(p + offset[i])
+                for i, p in enumerate(state.und_points)
             ]
-    else:  # strict Lagrangian: every point warped individually
-        state.und_points = _warp_ragged(
-            model, state.params, state.und_points, state.und_center
-        )
-        if state.def_contours is not None:
-            state.und_contours = [c.copy() for c in state.def_contours]
-    state.und_center = new_center
-    state.und_angle = state.def_angle.copy()
+            if state.und_contours is not None:
+                state.und_contours = [
+                    _round_points(c + offset[i])
+                    for i, c in enumerate(state.und_contours)
+                ]
+        else:  # strict Lagrangian: every point warped individually
+            state.und_points = _warp_ragged(
+                model, state.params, state.und_points, state.und_center
+            )
+            if state.def_contours is not None:
+                state.und_contours = [c.copy() for c in state.def_contours]
+        state.und_center = new_center
+        state.und_angle = state.def_angle.copy()
 
 
 def advance_guess(state: _TrackState, cfg: SequenceConfig) -> None:
@@ -427,7 +430,8 @@ def run_sequence(
         cs = (
             np.asarray(centers)
             if centers is not None
-            else np.array([p.mean(axis=0) for p in point_lists])
+            else np.array([p.mean(axis=0, dtype=np.float64)
+                           for p in point_lists])
         )
         global_center = cs.mean(axis=0)
 

@@ -48,6 +48,7 @@ SEQ_DISPATCH = "seq.dispatch"  # a chunk's correlate_frames and result copy
 SEQ_FETCH = "seq.fetch"  # the wait for a chunk's results
 SEQ_EMIT = "seq.emit"  # records and checkpoints of a chunk or a pair
 SEQ_PAIR = "seq.pair"  # the pair-by-pair path's solve and its copy back
+SEQ_ADVANCE = "seq.advance"  # a Lagrangian pair's domain moved on the host
 ENGINE_PREPARE = "engine.prepare"  # a chunk's pyramid, statics, levels
 ENGINE_PAIR = "engine.pair"  # one pair of a chunk
 ENGINE_SOLVE_LEVEL = "engine.solve_level"  # one level's LM loop
@@ -67,16 +68,18 @@ class Recording:
     """What recording() collects: `spans` in the order they opened, and
     `counters`: `steps`, the LM steps issued, and `empty_steps`, those
     issued on an empty list; `levels`, the pyramid levels' LM loops
-    issued, and `native_levels`, those issued by one call into the
-    kernel library.  A step's list length may be a device tensor; such
-    lengths are read when the recording closes."""
+    issued, `native_levels`, those issued by one call into the kernel
+    library, and `split_levels`, those whose fused assembly took K1's
+    split path (ops/assemble_v2.subset_chunks above 1).  A step's list
+    length may be a device tensor; such lengths are read when the
+    recording closes."""
 
     def __init__(self):
         self.spans: list[Span] = []
         self.counters: dict[str, int] = {}
         self._open: list[int] = []
         self._lengths: list = []  # ints, and int32 tensors of lengths
-        self._levels = [0, 0]  # levels, native levels
+        self._levels = [0, 0, 0]  # levels, native levels, split levels
 
     @contextlib.contextmanager
     def _span(self, name: str):
@@ -96,11 +99,12 @@ class Recording:
         until the recording closes."""
         self._lengths += lengths
 
-    def add_level(self, native: bool) -> None:
+    def add_level(self, native: bool, split: bool) -> None:
         """One pyramid level's LM loop issued; `native`: by one call into
-        the kernel library."""
+        the kernel library; `split`: its assembly on K1's split path."""
         self._levels[0] += 1
         self._levels[1] += bool(native)
+        self._levels[2] += bool(split)
 
     def _resolve(self) -> None:
         """Read every deferred length (one copy to the host) and count the
@@ -111,7 +115,8 @@ class Recording:
         self.counters = {"steps": len(lengths),
                          "empty_steps": lengths.count(0),
                          "levels": self._levels[0],
-                         "native_levels": self._levels[1]}
+                         "native_levels": self._levels[1],
+                         "split_levels": self._levels[2]}
         self._lengths = []
 
 

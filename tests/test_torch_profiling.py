@@ -2,8 +2,8 @@
 off, under a torch profiler and under recording(); the spans run_sequence
 and the engine open, with their parents; the list lengths the LM loop
 hands a recording, against a count taken around ops/solve.lm_step; the
-levels counted, and those issued by one native call; and records
-unchanged by a recording."""
+levels counted, those issued by one native call and those on K1's
+split path; and records unchanged by a recording."""
 
 import dataclasses
 import json
@@ -165,7 +165,8 @@ def test_counters_equal_the_steps_issued(monkeypatch, problem, backend):
         _run(problem, PAIRS + 1, backend)
     levels = PAIRS * _levels(problem)
     assert rec.counters == {"steps": len(issued), "empty_steps": 0,
-                            "levels": levels, "native_levels": 0}
+                            "levels": levels, "native_levels": 0,
+                            "split_levels": 0}
     assert len(issued) > levels and 0 not in issued
 
 
@@ -193,7 +194,7 @@ def test_empty_lengths_count_as_empty_steps():
         rec.add_lengths([torch.tensor([2], dtype=torch.int32)])
         assert rec.counters == {}  # nothing read while open
     assert rec.counters == {"steps": 6, "empty_steps": 2, "levels": 0,
-                            "native_levels": 0}
+                            "native_levels": 0, "split_levels": 0}
     (span,) = rec.spans
     assert span.name == profiling.ENGINE_SOLVE_LEVEL and span.parent is None
 
@@ -210,9 +211,9 @@ def test_levels_counted_on_the_cpu(problem, path):
 
 def test_native_levels_counted():
     with profiling.recording() as rec:
-        rec.add_level(True)
-        rec.add_level(False)
-        rec.add_level(True)
+        rec.add_level(True, False)
+        rec.add_level(False, False)
+        rec.add_level(True, True)
         assert rec.counters == {}
     assert rec.counters == {"steps": 0, "empty_steps": 0, "levels": 3,
-                            "native_levels": 2}
+                            "native_levels": 2, "split_levels": 1}

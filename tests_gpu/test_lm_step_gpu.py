@@ -388,7 +388,9 @@ def test_native_level_equals_the_stepwise_loop(dev, monkeypatch, kind, lvl,
     assert torch.equal(counts, want_counts)
     assert rec.counters == {"steps": cfg.max_iterations + 3,
                             "empty_steps": lengths.count(0), "levels": 1,
-                            "native_levels": 1}
+                            "native_levels": 1,
+                            "split_levels": int(v2.subset_chunks(
+                                level.pix.shape[-1]) > 1)}
     assert lengths[0] == int((~skip).sum())
 
 
