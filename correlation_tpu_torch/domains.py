@@ -1,4 +1,4 @@
-"""Correlation-domain geometry: padded per-level subset point sets (NumPy).
+"""Correlation-domain geometry: padded per-level subset point sets.
 
 Port of the host side of correlation_tpu/domains.py: SubsetBatch, the
 %2^l per-level decimation, make_batch, rectangular, annular and blob
@@ -7,18 +7,22 @@ solve several domains as one batch.  Ragged per-subset point lists become
 fixed-shape padded arrays plus masks so all subsets solve as one batch.
 
 A point survives to level l if its rounded integer coordinates are
-divisible by 2^l; its coordinates scale by 2^-l.  The JAX package sends
-batches of at most 64 subsets through its native C++ decimation; the
-port always uses the vectorized NumPy compaction, which gives the same
-arrays (tests/test_torch_domains.py).  The annular and crossing-number
-generators are the JAX package's NumPy versions, which give its points in
-its order with its native library off; that library computes in float32
-and can keep other edge pixels, so the port does not load it.
+divisible by 2^l; its coordinates scale by 2^-l.  The JAX package pads
+the lists and compacts them in NumPy (or its native C++ decimation); the
+port builds the batch in torch from one flat array of the lists
+(FlatPoints, build_batch), on the device that solves it: run_sequence on
+the card, make_batch on the CPU with NumPy out.  The arrays are the same
+(tests/test_torch_domains.py, tests/test_torch_batch_build.py).  The
+annular and crossing-number generators are the JAX package's NumPy
+versions, which give its points in its order with its native library
+off; that library computes in float32 and can keep other edge pixels, so
+the port does not load it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -78,27 +82,160 @@ def _level_extents(xs, ms) -> list[tuple[int, int]]:
     return out
 
 
-def _pad_points(
-    point_lists: list[np.ndarray],
-    pad_to_multiple: int = 8,
-    pad_to: int | None = None,
-):
-    """Pad ragged per-subset point lists to a common length (a multiple of
-    8, at least pad_to)."""
-    max_p = max((len(p) for p in point_lists), default=0)
-    max_p = max(max_p, 1)
-    if pad_to is not None:
-        max_p = max(max_p, pad_to)
-    max_p = -(-max_p // pad_to_multiple) * pad_to_multiple
-    s = len(point_lists)
-    xy = np.zeros((s, max_p, 2), np.float32)
-    mask = np.zeros((s, max_p), bool)
-    for i, pts in enumerate(point_lists):
-        n = len(pts)
+class FlatPoints:
+    """Ragged per-subset point lists as one array: `xy` [N, 2] float32,
+    the lists one after another, and `counts` [S] int64, their lengths.
+    `xy` is a view of one host buffer of 4-byte words (pinned where
+    `pin`): the points, a zero row, the counts, a 0 and room for [S, 2]
+    centers, which upload() copies to a device in one piece."""
+
+    def __init__(self, point_lists, pin: bool = False):
+        lists = [np.asarray(p, np.float32).reshape(-1, 2)
+                 for p in point_lists]
+        s = len(lists)
+        self.counts = np.array([len(p) for p in lists], np.int64)
+        n = int(self.counts.sum())
+        self._words = torch.empty(2 * n + 3 * s + 3, dtype=torch.int32,
+                                  pin_memory=pin)
+        words = self._words.numpy()
+        self.xy = words[:2 * n].view(np.float32).reshape(n, 2)
         if n:
-            xy[i, :n] = pts
-            mask[i, :n] = True
-    return xy, mask
+            np.concatenate(lists, out=self.xy)
+        words[2 * n:2 * n + 2] = 0
+        words[2 * n + 2:2 * n + s + 2] = self.counts
+        words[2 * n + s + 2] = 0
+
+    def upload(self, centers, device):
+        """One copy of the buffer, with `centers` [S, 2] written into it,
+        to `device`: views of it as the points and a zero row [N + 1, 2]
+        float32, the counts and a 0 [S + 1] int32, and the centers [S, 2]
+        float32."""
+        s, n = len(self.counts), len(self.xy)
+        words = self._words.numpy()
+        words.view(np.float32)[2 * n + s + 3:] = np.reshape(centers, -1)
+        up = self._words.to(device, non_blocking=True)
+        return (up[:2 * n + 2].view(torch.float32).view(n + 1, 2),
+                up[2 * n + 2:2 * n + s + 3],
+                up[2 * n + s + 3:].view(torch.float32).view(s, 2))
+
+    @functools.cached_property
+    def sums(self) -> np.ndarray:
+        """[S, 2] float64 sums of each list's points.  Summed in float64:
+        a float32 sum, one point at a time, drifts by tenths of a pixel
+        over a subset of 10^5 points."""
+        sums = np.zeros((len(self.counts), 2))
+        filled = self.counts > 0
+        if filled.any():
+            starts = np.cumsum(self.counts) - self.counts
+            sums[filled] = np.add.reduceat(self.xy.astype(np.float64),
+                                           starts[filled], axis=0)
+        return sums
+
+    def means(self) -> np.ndarray:
+        """[S, 2] float64 point means; NaN for an empty list, as
+        np.mean."""
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return self.sums / self.counts[:, None]
+
+
+def _survivors(xy, counts, max_level):
+    """Each level's survivors of the points `xy` [N + 1, 2] with `counts`
+    [S + 1], as _levels takes them: a list a level of (cnt [S], the
+    survivors of each list; keep [N], whether a point survives, and
+    ranks [N], the survivors up to it, both None at level 0; first [S],
+    the survivors before each list), and a device array of each level's
+    largest count and its (x, y) extents."""
+    dev = xy.device
+    n, s = xy.shape[0] - 1, counts.shape[0] - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    seg = torch.repeat_interleave(torch.arange(s + 1, **i32), counts,
+                                  output_size=n)
+    rows = seg.long()[:, None].expand(n, 2)  # scatter_reduce's index
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    starts = ends - counts
+    bits = torch.floor(xy[:n] + 0.5).to(torch.int32)
+    bits = bits[:, 0] | bits[:, 1]
+    levels, readings = [], []
+    for level in range(max_level + 1):
+        scaled, cnt, keep, ranks, first = xy[:n], counts, None, None, starts
+        if level:
+            scaled = scaled / (1 << level)
+            keep = (bits & ((1 << level) - 1)) == 0
+            ranks = torch.cumsum(keep, 0, dtype=torch.int32)
+            before = torch.nn.functional.pad(ranks, (1, 0))
+            first = before[starts]
+            cnt = before[ends] - first
+
+        def extreme(fill, how):
+            # A list's amax or amin over its survivors; row S is empty.
+            vals = (scaled if keep is None
+                    else torch.where(keep[:, None], scaled, fill))
+            return torch.full((s + 1, 2), fill, device=dev).scatter_reduce_(
+                0, rows, vals, how)
+
+        span = extreme(-math.inf, "amax") - extreme(math.inf, "amin")
+        span = torch.where(cnt[:, None] > 0, span, 0.0)
+        readings.append(torch.cat([cnt.max().reshape(1).double(),
+                                   torch.ceil(span.amax(0)).double()]))
+        levels.append((cnt[:s], keep, ranks, first[:s]))
+    return levels, torch.stack(readings)
+
+
+def _levels(xy, counts, max_level, pad_to=None):
+    """Per-level padded point arrays of the points `xy` [N + 1, 2] (the
+    lists one after another, then a zero row) with `counts` [S + 1] int32
+    (the lists' lengths, then 0), both on one device: (xs, ms, extents)
+    as SubsetBatch holds them.
+
+    A point survives to level l when floor(x + 0.5) and floor(y + 0.5)
+    are both divisible by 2^l; it keeps its list's order.  One copy to
+    the host brings every level's largest count and extents, which size
+    its padding; the rest stays on the device.  No two points write one
+    address, but for the extents' amax and amin within a list."""
+    n = xy.shape[0] - 1
+    levels, readings = _survivors(xy, counts, max_level)
+    readings = readings.cpu().tolist()  # the one read-back
+    points = torch.arange(n, dtype=torch.int32, device=xy.device)
+    xs, ms, extents = [], [], []
+    for level, ((cnt, keep, ranks, first), (most, ext_x, ext_y)) in enumerate(
+            zip(levels, readings)):
+        width = max(int(most), 1, pad_to[level] if pad_to else 0)
+        width = -(-width // 8) * 8
+        slot = torch.arange(width, dtype=torch.int32, device=xy.device)
+        mask = slot < cnt[:, None]
+        k = torch.where(mask, first[:, None] + slot, n)  # n: the zero row
+        if level:
+            # pos[k]: the index of the level's k-th survivor; pos[n] = n;
+            # point j, dropped, writes pos[n + 1 + j].
+            pos = points.new_full((2 * n + 1,), n)
+            pos.index_put_((torch.where(keep, ranks - 1, points + n + 1),),
+                           points)
+            k = pos[k]
+        xs.append(xy[k] / (1 << level) if level else xy[k])
+        ms.append(mask)
+        extents.append((int(ext_y), int(ext_x)) if most else (1, 1))
+    return xs, ms, extents
+
+
+def build_batch(
+    flat: FlatPoints,
+    centers: np.ndarray | None,
+    max_level: int,
+    pad_to: list[int] | None = None,
+    device="cpu",
+) -> SubsetBatch:
+    """A SubsetBatch of torch tensors on `device`, built there from one
+    copy of the flat point lists (FlatPoints.upload).
+
+    centers: [S, 2] explicit centers, or None for each list's point mean
+    (FlatPoints.sums over the count; zero for an empty list).  pad_to:
+    per-level padded point counts (each level pads to a multiple of 8,
+    at least pad_to[l])."""
+    if centers is None:
+        centers = flat.sums / np.maximum(flat.counts, 1)[:, None]
+    xy, counts, center0 = flat.upload(centers, device)
+    xs, ms, extents = _levels(xy, counts, max_level, pad_to)
+    return SubsetBatch(xs, ms, center0.clone(), extents=extents)
 
 
 def decimate_levels(
@@ -107,32 +244,13 @@ def decimate_levels(
     levels: list[int],
     pad_to: list[int] | None = None,
 ) -> tuple[list[np.ndarray], list[np.ndarray]]:
-    """Per-level point arrays by the %2^l rule.  One stable argsort per
-    level brings each subset's surviving points to the front, keeping the
-    x-major point order."""
-    max_level = max(levels)
-    xs = [None] * (max_level + 1)
-    ms = [None] * (max_level + 1)
-    xs[0], ms[0] = xy0, mask0
-    s = xy0.shape[0]
-    ix = np.floor(xy0[..., 0] + 0.5).astype(np.int64)
-    iy = np.floor(xy0[..., 1] + 0.5).astype(np.int64)
-    for level in range(1, max_level + 1):
-        mag = 1 << level
-        keep = mask0 & (ix % mag == 0) & (iy % mag == 0)
-        cnt = keep.sum(axis=1)
-        max_p = max(int(cnt.max()) if s else 0, 1)
-        if pad_to:
-            max_p = max(max_p, pad_to[level])
-        max_p = -(-max_p // 8) * 8
-        order = np.argsort(~keep, axis=1, kind="stable")[:, :max_p]
-        xy_l = np.take_along_axis(xy0, order[..., None], axis=1)
-        mask_l = np.arange(max_p)[None, :] < cnt[:, None]
-        xs[level] = np.where(
-            mask_l[..., None], xy_l / np.float32(mag), 0.0
-        ).astype(np.float32)
-        ms[level] = mask_l
-    return xs, ms
+    """Per-level point arrays by the %2^l rule (make_batch's); level 0
+    is xy0 and mask0 as given."""
+    flat = FlatPoints([xy[m] for xy, m in zip(xy0, mask0)])
+    batch = build_batch(flat, np.zeros((len(mask0), 2)), max(levels),
+                        pad_to)
+    return ([xy0] + [a.numpy() for a in batch.xy[1:]],
+            [mask0] + [a.numpy() for a in batch.mask[1:]])
 
 
 def make_batch(
@@ -141,25 +259,16 @@ def make_batch(
     max_level: int,
     pad_to: list[int] | None = None,
 ) -> SubsetBatch:
-    """A SubsetBatch from per-subset level-0 point lists.
+    """A SubsetBatch of NumPy arrays from per-subset level-0 point lists
+    (build_batch on the CPU).
 
     centers: [S, 2] explicit centers, or None for the mean of each
     subset's points.  pad_to: per-level padded point counts.
     """
-    xy0, mask0 = _pad_points(
-        [np.asarray(p, np.float32).reshape(-1, 2) for p in point_lists],
-        pad_to=pad_to[0] if pad_to else None,
-    )
-    if centers is None:
-        # Summed in float64: a float32 sum, one point at a time, drifts
-        # by tenths of a pixel over a subset of 10^5 points.
-        n = np.maximum(mask0.sum(axis=1), 1)[:, None]
-        centers = (xy0 * mask0[..., None]).sum(axis=1, dtype=np.float64) / n
-    xs, ms = decimate_levels(xy0, mask0, list(range(max_level + 1)), pad_to)
-    return SubsetBatch(
-        xs, ms, np.asarray(centers, np.float32),
-        extents=_level_extents(xs, ms),
-    )
+    batch = build_batch(FlatPoints(point_lists), centers, max_level, pad_to)
+    return SubsetBatch([a.numpy() for a in batch.xy],
+                       [a.numpy() for a in batch.mask],
+                       batch.center0.numpy(), extents=batch.extents)
 
 
 def combine_batches(

@@ -65,7 +65,7 @@ from correlation_tpu_torch.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu_torch.domains import make_batch
+from correlation_tpu_torch.domains import FlatPoints, build_batch
 from correlation_tpu_torch.engine import (
     check_channels,
     correlate,
@@ -84,6 +84,7 @@ from correlation_tpu_torch.utils.profiling import (
     SEQ_PAIR,
     SEQ_RUN,
     SEQ_STAGE,
+    current_recording,
     trace_region,
     traced,
 )
@@ -172,18 +173,20 @@ def initial_track_state(
     model: FittingModel,
     contours: list | None = None,
     per_sector_uv: np.ndarray | None = None,
+    means: np.ndarray | None = None,
 ) -> _TrackState:
     """Frame-0 state: per-sector guesses from the global guess (the
     rigid-rotation translation for UVQ, the strain offset for AFFINE, about
-    the global center), optionally seeded per sector with (u, v)."""
+    the global center), optionally seeded per sector with (u, v).  Without
+    centers each sector centers on its point mean: `means` [S, 2] where
+    the caller has them (FlatPoints.means), else taken here."""
     s = len(point_lists)
     num_params = len(global_guess)
     explicit = centers is not None
     if centers is None:
-        centers = np.array(
-            [p.mean(axis=0, dtype=np.float64) for p in point_lists],
-            np.float32,
-        )
+        if means is None:
+            means = FlatPoints(point_lists).means()
+        centers = np.asarray(means, np.float32)
     guess = np.tile(np.asarray(global_guess, np.float32), (s, 1))
     if per_sector_uv is not None:
         uv = np.asarray(per_sector_uv, np.float32).reshape(s, 2)
@@ -424,16 +427,17 @@ def run_sequence(
     num_params = solver.num_params
     device = resolve_device(solver, device, mesh=mesh)
     should_stop = broadcast_flag(mesh, should_stop)
+    on_card = torch.device(device).type == "cuda"
     if global_guess is None:
         global_guess = np.zeros(num_params, np.float32)
+    # The point lists as one array, made once: the point means and the
+    # first batch come from it.
+    with trace_region(SEQ_MAKE_BATCH):
+        flat = FlatPoints(point_lists, pin=on_card)
+        means = flat.means() if centers is None else None
     if global_center is None:
-        cs = (
-            np.asarray(centers)
-            if centers is not None
-            else np.array([p.mean(axis=0, dtype=np.float64)
-                           for p in point_lists])
-        )
-        global_center = cs.mean(axis=0)
+        global_center = (np.asarray(centers) if centers is not None
+                         else means).mean(axis=0)
 
     start_frame = 0
     records: list[FrameRecord] = []
@@ -442,10 +446,11 @@ def run_sequence(
         from correlation_tpu_torch.utils.checkpoint import load_checkpoint
 
         start_frame, state, records = load_checkpoint(checkpoint_path)
+        flat = None  # the batch comes from the checkpoint's points
     if state is None:
         state = initial_track_state(
             point_lists, centers, global_center, global_guess, model,
-            contours=contours, per_sector_uv=per_sector_guess,
+            contours=contours, per_sector_uv=per_sector_guess, means=means,
         )
 
     stop = solver.pyramid.stop
@@ -462,16 +467,23 @@ def run_sequence(
 
     def batch_for(points_moved: bool):
         # Padded shapes grow once and then hold across frames.
-        nonlocal batch
+        nonlocal batch, flat
         if batch is None or points_moved:
             with trace_region(SEQ_MAKE_BATCH):
-                batch = make_batch(
-                    state.und_points,
+                if flat is None:
+                    flat = FlatPoints(state.und_points, pin=on_card)
+                batch = build_batch(
+                    flat,
                     state.und_center if state.explicit_centers else None,
                     stop,
                     pad_to=state.pad_to,
-                ).to_device(device)
+                    device=device,
+                )
+            flat = None
             state.pad_to = [a.shape[1] for a in batch.xy]
+            rec = current_recording()
+            if rec is not None:
+                rec.add_batch(on_card)
         return batch
 
     def emit(frame, params, guess, chi, iterations, errors,

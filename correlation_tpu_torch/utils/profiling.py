@@ -42,7 +42,7 @@ import torch
 # The spans the program opens, from the sequence layer down to one
 # pyramid level's LM loop; none is opened inside the loop.
 SEQ_RUN = "seq.run"  # run_sequence, whole
-SEQ_MAKE_BATCH = "seq.make_batch"  # the subset batch, built and moved
+SEQ_MAKE_BATCH = "seq.make_batch"  # the point lists flattened, a batch built
 SEQ_STAGE = "seq.stage"  # a chunk's frame stack, stacked and sent
 SEQ_DISPATCH = "seq.dispatch"  # a chunk's correlate_frames and result copy
 SEQ_FETCH = "seq.fetch"  # the wait for a chunk's results
@@ -70,9 +70,10 @@ class Recording:
     issued on an empty list; `levels`, the pyramid levels' LM loops
     issued, `native_levels`, those issued by one call into the kernel
     library, and `split_levels`, those whose fused assembly took K1's
-    split path (ops/assemble_v2.subset_chunks above 1).  A step's list
-    length may be a device tensor; such lengths are read when the
-    recording closes."""
+    split path (ops/assemble_v2.subset_chunks above 1); `batches`, the
+    subset batches run_sequence built, and `batches_on_device`, those
+    built on a card.  A step's list length may be a device tensor; such
+    lengths are read when the recording closes."""
 
     def __init__(self):
         self.spans: list[Span] = []
@@ -80,6 +81,7 @@ class Recording:
         self._open: list[int] = []
         self._lengths: list = []  # ints, and int32 tensors of lengths
         self._levels = [0, 0, 0]  # levels, native levels, split levels
+        self._batches = [0, 0]  # batches, those built on a card
 
     @contextlib.contextmanager
     def _span(self, name: str):
@@ -106,6 +108,12 @@ class Recording:
         self._levels[1] += bool(native)
         self._levels[2] += bool(split)
 
+    def add_batch(self, on_device: bool) -> None:
+        """One subset batch built by run_sequence; `on_device`: on a
+        card."""
+        self._batches[0] += 1
+        self._batches[1] += bool(on_device)
+
     def _resolve(self) -> None:
         """Read every deferred length (one copy to the host) and count the
         steps and the empty ones."""
@@ -116,7 +124,9 @@ class Recording:
                          "empty_steps": lengths.count(0),
                          "levels": self._levels[0],
                          "native_levels": self._levels[1],
-                         "split_levels": self._levels[2]}
+                         "split_levels": self._levels[2],
+                         "batches": self._batches[0],
+                         "batches_on_device": self._batches[1]}
         self._lengths = []
 
 

@@ -3,10 +3,12 @@ off, under a torch profiler and under recording(); the spans run_sequence
 and the engine open, with their parents; the list lengths the LM loop
 hands a recording, against a count taken around ops/solve.lm_step; the
 levels counted, those issued by one native call and those on K1's
-split path; and records unchanged by a recording."""
+split path; the subset batches built; and records unchanged by a
+recording."""
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -166,7 +168,8 @@ def test_counters_equal_the_steps_issued(monkeypatch, problem, backend):
     levels = PAIRS * _levels(problem)
     assert rec.counters == {"steps": len(issued), "empty_steps": 0,
                             "levels": levels, "native_levels": 0,
-                            "split_levels": 0}
+                            "split_levels": 0, "batches": 1,
+                            "batches_on_device": 0}
     assert len(issued) > levels and 0 not in issued
 
 
@@ -194,7 +197,8 @@ def test_empty_lengths_count_as_empty_steps():
         rec.add_lengths([torch.tensor([2], dtype=torch.int32)])
         assert rec.counters == {}  # nothing read while open
     assert rec.counters == {"steps": 6, "empty_steps": 2, "levels": 0,
-                            "native_levels": 0, "split_levels": 0}
+                            "native_levels": 0, "split_levels": 0,
+                            "batches": 0, "batches_on_device": 0}
     (span,) = rec.spans
     assert span.name == profiling.ENGINE_SOLVE_LEVEL and span.parent is None
 
@@ -216,4 +220,42 @@ def test_native_levels_counted():
         rec.add_level(True, True)
         assert rec.counters == {}
     assert rec.counters == {"steps": 0, "empty_steps": 0, "levels": 3,
-                            "native_levels": 2, "split_levels": 1}
+                            "native_levels": 2, "split_levels": 1,
+                            "batches": 0, "batches_on_device": 0}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_batches_counted_on_the_cpu(problem, path):
+    """One batch a call, built on the CPU here (the card's are counted
+    in tests_gpu)."""
+    with profiling.recording() as rec:
+        _run(problem, PATHS[path][0])
+    assert (rec.counters["batches"], rec.counters["batches_on_device"]) == (
+        1, 0)
+
+
+def test_make_batch_span_encloses_the_build(monkeypatch, problem):
+    """The point lists' flattening, their means and the batch's build,
+    upload and read-back all run inside seq.make_batch spans."""
+    import correlation_tpu_torch.sequence as seq
+
+    calls = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            out = fn(*args, **kwargs)
+            calls.append((fn.__name__, t0, time.perf_counter_ns()))
+            return out
+        return call
+
+    monkeypatch.setattr(seq, "FlatPoints", timed(seq.FlatPoints))
+    monkeypatch.setattr(seq, "build_batch", timed(seq.build_batch))
+    cfg, frames, pts, _ = problem
+    with profiling.recording() as rec:
+        run_sequence(list(frames), pts, SequenceConfig(solver=cfg),
+                     centers=None, device="cpu")
+    spans = [s for s in rec.spans if s.name == profiling.SEQ_MAKE_BATCH]
+    assert [c[0] for c in calls] == ["FlatPoints", "build_batch"]
+    for _, t0, t1 in calls:
+        assert any(s.start_ns <= t0 <= t1 <= s.end_ns for s in spans)

@@ -390,7 +390,8 @@ def test_native_level_equals_the_stepwise_loop(dev, monkeypatch, kind, lvl,
                             "empty_steps": lengths.count(0), "levels": 1,
                             "native_levels": 1,
                             "split_levels": int(v2.subset_chunks(
-                                level.pix.shape[-1]) > 1)}
+                                level.pix.shape[-1]) > 1),
+                            "batches": 0, "batches_on_device": 0}
     assert lengths[0] == int((~skip).sum())
 
 
