@@ -32,22 +32,19 @@ The LM loop stays on the device.  JAX runs the LM iterations in a
 lax.while_loop, whose stop test never leaves the device, and shrinks the
 batch with a compaction cascade.  Here the list of the still-active
 subsets stays on the device: a level's first list is a stable sort of
-its flags and their sum (active_list, no host read), the fused assembly
-kernel reads its subsets through the list and its length from the
-device, and the LM-step kernel (ops/solve.lm_step) updates exactly the
-listed rows and writes the next list, the listed subsets still active,
-in the same launch; the positions past the list's length exit at once,
-which does the cascade's job.  So on the card a level enqueues its
-initial step and the JAX loop's step bound of max_iterations + 2
-iterations without one host sync, all issued by one call into the
-kernel library (ops/solve.lm_level), and a chained chunk of frame pairs
+its flags and their sum (active_list, no host read), every assembly
+reads its subsets through the list and its length, and the LM-step
+kernel (ops/solve.lm_step) updates exactly the listed rows and writes
+the next list, the listed subsets still active, in the same launch; the
+positions past the list's length exit at once, which does the cascade's
+job.  So on the card a level of the fused assembly enqueues its initial
+step and the JAX loop's step bound of max_iterations + 2 iterations
+without one host sync, all issued by one call into the kernel library
+(ops/solve.lm_level), and a chained chunk of frame pairs
 (correlate_frames) enqueues whole, from the staged stack to the packed
 result.  A subset's trajectory depends on its own state alone, so this
 is the same arithmetic as the JAX loop (whose compaction is tested
 bit-identical to the monolithic loop).
-The separable and field assemblies, plain torch over the list, cannot
-exit early: they take a host list (torch.nonzero, one sync an iteration)
-and stop at the first empty one, through the same LM step.
 
 Subset sharding (mesh=, parallel/mesh.py).  correlate and
 correlate_frames take a mesh of processes, one a card: every rank gets
@@ -127,26 +124,25 @@ class CorrelationResult(NamedTuple):
 
 def _make_assemble(cfg: SolverConfig, level: LevelArrays,
                    static: LevelStatic | None):
-    """(assemble, device_list): assemble(params [S, NP], idx int32 [n],
-    count) -> [n, 8, 8], the field assembly where the level carries a
-    field, the separable one where the statics say `sep`, else the fused
-    one; device_list is whether the assembly reads the list's length from
-    the device (`count`), which only the fused kernel does."""
+    """assemble(params [S, NP], idx int32 [n], count int32 [1]) ->
+    [n, 8, 8], the assembly of idx[:count] with zero rows past it: the
+    field assembly where the level carries a field, the separable one
+    where the statics say `sep`, else the fused one."""
     if level.def_field is not None:
         def assemble(params, idx, count):
             return field_assemble(cfg.model, cfg.interpolation,
                                   level.def_field, level.pix, level.center,
-                                  params, idx)
+                                  params, idx, count)
 
-        return assemble, False
+        return assemble
     if static.sep:
         def assemble(params, idx, count):
             return sep_assemble(cfg.model, cfg.interpolation, static.tile_h,
                                 static.tile_w, static.img_h, static.img_w,
                                 level.def_img, level.pix, level.center,
-                                params, idx)
+                                params, idx, count)
 
-        return assemble, False
+        return assemble
     # resolve_device has checked this for every entry point; solve_level
     # and correlate_prepared are public and can be called without it.
     _check_backend_device(cfg, level.def_img.device)
@@ -158,35 +154,25 @@ def _make_assemble(cfg: SolverConfig, level: LevelArrays,
             level.center, params, level.bbox, idx, count,
         )
 
-    return assemble, True
+    return assemble
 
 
-def active_list(mask: torch.Tensor, on_device: bool):
-    """The subsets where `mask` holds, as (idx int32, count).
-
-    on_device: idx has room for every subset, the listed ones first in
-    index order (a stable sort of the mask), and count is their number as
-    an int32 [1] tensor on mask's device: no operation reads it on the
-    host, so nothing waits for the device.  Else idx lists exactly those
-    subsets (torch.nonzero, which waits for the device) and count is None.
-    solve_level builds a device list once a level, for the initial step;
-    the LM step writes every later one.  The host lists of the separable
-    and field assemblies are built every iteration.
-    """
-    if on_device:
-        idx = torch.argsort(mask.view(torch.uint8), descending=True,
-                            stable=True).to(torch.int32)
-        return idx, mask.sum(dtype=torch.int32).reshape(1)
-    return torch.nonzero(mask).flatten().to(torch.int32), None
+def active_list(mask: torch.Tensor):
+    """The subsets where `mask` holds, as (idx int32, count): idx has room
+    for every subset, the listed ones first in index order (a stable sort
+    of the mask), and count is their number as an int32 [1] tensor on
+    mask's device.  No operation reads it on the host, so nothing waits
+    for the device.  solve_level builds a list once a level, for the
+    initial step; the LM step writes every later one."""
+    idx = torch.argsort(mask.view(torch.uint8), descending=True,
+                        stable=True).to(torch.int32)
+    return idx, mask.sum(dtype=torch.int32).reshape(1)
 
 
-def _empty_list(idx: torch.Tensor, count: torch.Tensor | None) -> bool:
-    """Whether a list is known to be empty without waiting for the card:
-    a host list's length, a device list's on the CPU.  A device list on
-    the card never is: its iteration runs, and its launches exit."""
-    if count is None:
-        return idx.numel() == 0
-    return count.device.type == "cpu" and int(count) == 0
+def _ends_level(length: torch.Tensor) -> bool:
+    """The plain loop's stop test, on a list's length read to the host:
+    the level ends at its first empty list."""
+    return not length.item()
 
 
 @profiling.traced(profiling.ENGINE_SOLVE_LEVEL)
@@ -206,83 +192,69 @@ def solve_level(
 
     Each LM iteration is: the list of the still-active subsets, their
     assembly, and ops/solve.lm_step on them, as the initial step is on the
-    subsets not skipped.  On the fused assembly the list stays on the
-    device: active_list builds the initial step's list once, and step k
-    writes the next list into the other of two buffers that alternate and
-    its length into row k of a counts buffer, so the host always knows
-    which is current without a read, and the level's lengths stay on the
-    device.  On the card the level's initial step and max_iterations + 2
+    subsets not skipped.  The list stays on the device: active_list builds
+    the initial step's list once, and step k writes the next list into
+    the other of two buffers that alternate and its length into row k of
+    a counts buffer, so the host always knows which is current without a
+    read, and the level's lengths stay on the device.  With the fused
+    assembly on the card the level's initial step and max_iterations + 2
     iterations (the JAX loop's step bound) enqueue without one host read,
     an iteration past the last active subset costing two launches that
     exit at once, and since their launches are then fixed before the first
     is issued, one call into the kernel library (ops/solve.lm_level)
-    issues them all; on the CPU the loop stops at the first empty list.  The
-    separable and field assemblies, plain torch over the list, take a
-    host list instead (active_list every iteration, one sync each) and
-    stop at the first empty one.  The results are the same.  While a
+    issues them all.  Every other level runs the plain loop: it reads each
+    list's length to the host once, before the step (a wait on the card,
+    where only the separable and field assemblies take this loop), and
+    stops at the first empty list.  The results are the same.  While a
     utils.profiling recording is open, the list length of every step
     issued is handed to it (a device count by reference, read when the
     recording closes), and the level is counted (utils.profiling
     Recording.add_level), with whether its fused assembly takes K1's
     split path.
     """
-    assemble, device_list = _make_assemble(cfg, level, static)
+    assemble = _make_assemble(cfg, level, static)
+    fused = level.def_field is None and not static.sep
     n_points = level.n_points.contiguous()
     n_ok = n_points > 0
     scaling = torch.where(n_ok, 1.0 / n_points.clamp(min=1.0), 0.0)
     state = LMState.start(cfg, params0)
     bbox, center = level.bbox.contiguous(), level.center.contiguous()
-    rec = profiling.current_recording()
-    lengths = None if rec is None else []  # each issued step's list length
-
-    def step(idx, count, init, nxt=(None, None)):
-        if _empty_list(idx, count):
-            return False
-        if lengths is not None and count is None:
-            lengths.append(idx.shape[0])
-        out = assemble(state.p_cur, idx, count)
-        lm_step(cfg, state, out, idx, count, scaling, n_points, bbox, center,
-                level.img_hw, init, *nxt)
-        return True
-
     steps = cfg.max_iterations + 3  # the initial step and JAX's step bound
-    # A device list on the card: the level's launches are fixed before the
-    # first is issued, and one call into the kernel library issues them.
-    native = device_list and params0.device.type == "cuda"
-    if device_list:
-        # Entries past a list's count stay valid subset indices (zero, or
-        # an older list's), which the CPU assembly checks.
-        lists = torch.zeros((2, params0.shape[0]), dtype=torch.int32,
-                            device=params0.device)
-        counts = torch.empty((steps, 1), dtype=torch.int32,
-                             device=params0.device)
-        cur = active_list(~skip, True)
-        first, issued = cur[1], steps
-        if native:
-            lm_level(cfg, state, (static.tile_h, static.tile_w, static.img_h,
-                                  static.img_w, level.def_img, level.pix),
-                     scaling, n_points, bbox, center, level.img_hw, *cur,
-                     lists, counts)
-        else:
-            for k in range(steps):
-                nxt = (lists[k % 2], counts[k])
-                if not step(*cur, k == 0, nxt):
-                    issued = k
-                    break
-                cur = nxt
-        if lengths is not None and issued:
+    # Entries past a list's count stay valid subset indices (zero, or an
+    # older list's), which the CPU assembly checks.
+    lists = torch.zeros((2, params0.shape[0]), dtype=torch.int32,
+                        device=params0.device)
+    counts = torch.empty((steps, 1), dtype=torch.int32, device=params0.device)
+    idx, count = active_list(~skip)
+    first, issued = count, steps
+    # The fused assembly on the card: the level's launches are fixed before
+    # the first is issued, and one call into the kernel library issues them.
+    native = fused and params0.device.type == "cuda"
+    if native:
+        lm_level(cfg, state, (static.tile_h, static.tile_w, static.img_h,
+                              static.img_w, level.def_img, level.pix),
+                 scaling, n_points, bbox, center, level.img_hw, idx, count,
+                 lists, counts)
+    else:
+        for k in range(steps):
+            # The step's one host read; the assembly takes this copy, so
+            # it reads nothing more.
+            length = count.cpu()
+            if _ends_level(length):
+                issued = k
+                break
+            lm_step(cfg, state, assemble(state.p_cur, idx, length), idx,
+                    count, scaling, n_points, bbox, center, level.img_hw,
+                    k == 0, lists[k % 2], counts[k])
+            idx, count = lists[k % 2], counts[k]
+    rec = profiling.current_recording()
+    if rec is not None:
+        if issued:
             # Step k's list length, on the device: the first list's count
             # for k = 0, counts[k - 1] after.
-            lengths += [first, counts[:issued - 1]]
-    else:
-        step(*active_list(~skip, False), True)
-        for _ in range(steps - 1):
-            if not step(*active_list(state.active, False), False):
-                break
-    if rec is not None:
-        rec.add_lengths(lengths)
-        rec.add_level(native, device_list
-                      and v2.subset_chunks(level.pix.shape[-1]) > 1)
+            rec.add_lengths([first, counts[:issued - 1]])
+        rec.add_level(native,
+                      fused and v2.subset_chunks(level.pix.shape[-1]) > 1)
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 

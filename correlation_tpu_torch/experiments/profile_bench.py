@@ -205,7 +205,7 @@ def main() -> dict[str, float]:
 
     times["empty_iteration"] = graph_ms(empty_iteration, 20)
     times["empty_iteration_sorted"] = graph_ms(
-        lambda: iteration(*active_list(none, True)), 20)
+        lambda: iteration(*active_list(none)), 20)
     empty_iteration()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -25,7 +25,9 @@ the interpolation window.  It differs from the fused kernel's plain
 version (fused_assemble_reference) in that rule alone: the kernel places
 its tiles from the warped bounding-box corners, which for a domain whose
 corners are not pixels of its mask (annular sectors, blobs) is another
-tile.  Neither limits the channels.
+tile.  Neither limits the channels.  Both take a subset list as the fused
+kernel does: idx alone, or idx with its length `count`, which they read
+on the host.
 
 The pixel rows are assemble_v2.pack_pixels', H is
 models.warp.steepest_descent and the Gram sums run in the fused kernel's
@@ -72,6 +74,18 @@ def _gram(model, pix, xy, center, w, dwdx, dwdy, ok) -> torch.Tensor:
     return out
 
 
+def _listed(part, idx, count) -> torch.Tensor:
+    """[len(idx), 8, 8]: part(idx[:count]) in the first count rows and zero
+    rows past them, as assemble_v2.fused_assemble_reference returns a list
+    with a length; count (int32 [1], on any device) is read on the host."""
+    whole = torch.zeros((idx.shape[0], 8, 8), dtype=torch.float32,
+                        device=idx.device)
+    live = int(count)
+    if live:
+        whole[:live] = part(idx[:live])
+    return whole
+
+
 def _check_rows(pix, channels):
     if pix.shape[1] < v2.ROW_UND + channels:
         raise ValueError(
@@ -86,14 +100,22 @@ def field_assemble(
     center: torch.Tensor,
     params: torch.Tensor,
     idx: torch.Tensor | None = None,
+    count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Assembly of the subsets `idx` (all when None) -> [n, 8, 8] float32.
 
     def_field: the deformed image's field at this level
     (interp.precompute_field, [Hf, Wf, C, K]); pix: [S, 5 + max(C, 3), P]
     (pack_pixels); center [S, 2]; params [S, NP]; idx: int [n] subset
-    indices.  All on one device.
+    indices; count: optional int32 [1], the list's length: only
+    idx[:count] are assembled, the rows past it zero.  All on one device
+    but count, which may be on the host.
     """
+    if count is not None:
+        return _listed(
+            lambda rows: field_assemble(model, interp, def_field, pix, center,
+                                        params, rows),
+            idx, count)
     if idx is not None:
         sel = idx.long()
         pix, center, params = pix[sel], center[sel], params[sel]
@@ -140,6 +162,7 @@ def sep_assemble(
     center: torch.Tensor,
     params: torch.Tensor,
     idx: torch.Tensor | None = None,
+    count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Separable-tile assembly of the subsets `idx` (all when None) ->
     [n, 8, 8] float32.
@@ -147,9 +170,16 @@ def sep_assemble(
     img: [Hp, Wp, C] float32 deformed image, zero-padded to at least
     (tile_h, tile_w) (assemble_v2.prepare_image); img_h, img_w: its true
     dims (validity windows); pix: [S, 5 + max(C, 3), P] (pack_pixels);
-    center [S, 2]; params [S, NP]; idx: int [n] subset indices.  All on
-    one device.
+    center [S, 2]; params [S, NP]; idx: int [n] subset indices; count:
+    optional int32 [1], the list's length: only idx[:count] are
+    assembled, the rows past it zero.  All on one device but count, which
+    may be on the host.
     """
+    if count is not None:
+        return _listed(
+            lambda rows: sep_assemble(model, interp, tile_h, tile_w, img_h,
+                                      img_w, img, pix, center, params, rows),
+            idx, count)
     if idx is not None:
         sel = idx.long()
         pix, center, params = pix[sel], center[sel], params[sel]

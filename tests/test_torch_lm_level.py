@@ -91,7 +91,7 @@ def _level_args(cfg, args, steps=4):
     state = solve.LMState.start(cfg, params)
     n_points = pix[:, v2.ROW_MASK].sum(dim=1)
     scaling = 1.0 / n_points
-    idx, count = engine.active_list(torch.ones(s, dtype=torch.bool), True)
+    idx, count = engine.active_list(torch.ones(s, dtype=torch.bool))
     lists = torch.zeros((2, s), dtype=torch.int32)
     counts = torch.zeros((steps, 1), dtype=torch.int32)
     return [cfg, state, (th, tw, h, w, img, pix), scaling, n_points, bbox,

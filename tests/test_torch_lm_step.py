@@ -16,13 +16,14 @@ Then: a listed step equals the whole batch's step on its rows bit for
 bit and leaves the other rows alone; the step's output list (the listed
 subsets still active, in list order) equals active_list of the flags
 after it, on problems.lm_step_list's lists with gaps, in every model and
-mode; the device-side list (active_list) and the fused assembly's device
-length on the CPU; the Python constants round as the kernel takes them;
-solve_level's fixed-budget loop (no stop at the first empty list, as on
-the card), whose lists after the first are the steps' output lists in
-two alternating buffers, equals the early-stopping one bit for bit and
-JAX's solve on tests/test_engine.py's oracle problem; and the separable
-path keeps its host lists.
+mode; the device-side list (active_list), and the device length taken
+by the three assemblies (fused, separable, field) on the CPU; the Python
+constants round as the kernel takes them; solve_level's fixed-budget
+loop (no stop at the first empty list, as on the card), whose lists
+after the first are the steps' output lists in two alternating buffers,
+equals the early-stopping one bit for bit and JAX's solve on
+tests/test_engine.py's oracle problem; and the separable and field
+paths run the same device-list loop.
 """
 
 import types
@@ -45,6 +46,8 @@ from correlation_tpu_torch.config import (
     SolverConfig,
 )
 from correlation_tpu_torch.ops import assemble_v2 as v2
+from correlation_tpu_torch.ops.assemble import field_assemble, sep_assemble
+from correlation_tpu_torch.ops.interp import precompute_field
 from correlation_tpu_torch.ops.solve import LMState, lm_step
 from correlation_tpu_torch.problems import (
     LM_STEP_LISTS,
@@ -329,7 +332,7 @@ def test_step_writes_the_next_list(model, init, kind, stop):
     lm_step(cfg, got, *args, img_hw, init, idx_next, count_next)
     for name, t in got._asdict().items():
         assert torch.equal(_bits(t), _bits(plain._asdict()[name])), name
-    want, want_count = engine.active_list(got.active, True)
+    want, want_count = engine.active_list(got.active)
     n = int(count_next)
     assert n == int(want_count)
     assert torch.equal(idx_next[:n], want[:n])
@@ -388,14 +391,10 @@ def test_constants_round_as_the_kernel_takes_them():
 
 def test_active_list_on_the_device():
     mask = torch.tensor([0, 1, 1, 0, 1, 0, 0, 1], dtype=torch.bool)
-    idx, count = engine.active_list(mask, True)
+    idx, count = engine.active_list(mask)
     assert idx.dtype == count.dtype == torch.int32
     assert count.tolist() == [4] and idx[:4].tolist() == [1, 2, 4, 7]
     assert sorted(idx.tolist()) == list(range(8))
-    host, none = engine.active_list(mask, False)
-    assert none is None and host.tolist() == [1, 2, 4, 7]
-    assert engine._empty_list(*engine.active_list(mask & False, True))
-    assert not engine._empty_list(idx, count)
 
 
 def _k1_args(s=6, side=9, seed=2):
@@ -422,17 +421,35 @@ def _k1_args(s=6, side=9, seed=2):
             v2.subset_bbox(xy, mask))
 
 
-@pytest.mark.parametrize("count", [0, 1, 4, 6])
-def test_fused_assembly_takes_a_device_length(count):
-    """The plain version with count assembles idx[:count] exactly as with
-    that list, and returns zero rows past it."""
-    args = _k1_args()
+def _assembly(kind):
+    """assemble(idx, count=None) of `kind` on _k1_args' subsets."""
+    model, interp, th, tw, h, w, img, pix, center, params, bbox = _k1_args()
+    if kind == "fused":
+        return lambda *lst: v2.fused_assemble(model, interp, th, tw, h, w,
+                                              img, pix, center, params, bbox,
+                                              *lst)
+    if kind == "sep":
+        return lambda *lst: sep_assemble(model, interp, th, tw, h, w, img,
+                                         pix, center, params, *lst)
+    field = precompute_field(img[:h, :w], interp)
+    return lambda *lst: field_assemble(model, interp, field, pix, center,
+                                       params, *lst)
+
+
+@pytest.mark.parametrize("kind, count", [
+    pytest.param(k, c, id=str(c) if k == "fused" else f"{k}-{c}")
+    for k in ("fused", "sep", "field") for c in (0, 1, 4, 6)])
+def test_fused_assembly_takes_a_device_length(kind, count):
+    """Each assembly with count assembles idx[:count] exactly as with that
+    list, and returns zero rows past it."""
+    assemble = _assembly(kind)
     idx = torch.tensor([4, 1, 5, 0, 2, 3], dtype=torch.int32)
-    got = v2.fused_assemble(*args, idx,
-                            torch.tensor([count], dtype=torch.int32))
+    got = assemble(idx, torch.tensor([count], dtype=torch.int32))
     assert got.shape == (6, 8, 8)
-    assert torch.equal(got[:count], v2.fused_assemble(*args, idx[:count]))
     assert not got[count:].any()
+    assert count == 0 or got[:count].any()
+    if count or kind == "fused":  # sep and field take no empty host list
+        assert torch.equal(got[:count], assemble(idx[:count]))
 
 
 def _oracle_problem():
@@ -530,13 +547,11 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
     steps.clear()
     lists.clear()
     buffers.clear()
-    monkeypatch.setattr(engine, "_empty_list",
-                        lambda idx, count: False if count is not None
-                        else idx.numel() == 0)
+    monkeypatch.setattr(engine, "_ends_level", lambda length: False)
     budget = solve()
     assert n_early < len(steps) == cfg.max_iterations + 3
     assert steps[-1] == 0  # the budget's late lists are empty
-    assert len(lists) == 1 and lists[0][1] is True
+    assert len(lists) == 1
     # Two list buffers, alternating; a count row each step, in step order,
     # so that the level's list lengths stay on the device.
     lists_at = [b[0] for b in buffers]
@@ -555,26 +570,29 @@ def test_fixed_budget_loop_matches_early_stop_and_jax(monkeypatch,
                                rtol=5e-5)
 
 
-def test_sep_path_keeps_host_lists(monkeypatch):
-    """The separable assembly takes a host list each iteration (active_list
-    on the host, no device count) and asks the step for no output list."""
+@pytest.mark.parametrize("backend", ["sep", "field"])
+def test_plain_assemblies_take_the_device_list(monkeypatch, backend):
+    """The separable and field assemblies run the fused CPU path's loop:
+    active_list once a level, and every step on a device list (an int32
+    [1] count) asking for the next list, which the following step takes;
+    the solve has no error."""
     from correlation_tpu_torch.config import PyramidConfig
     from correlation_tpu_torch.domains import make_batch
 
     und, dfm, subsets = _oracle_problem()
     cfg = SolverConfig(model=FittingModel.UV,
                        interpolation=Interpolation.BICUBIC,
-                       pyramid=PyramidConfig(0, 1, 0), backend="sep")
+                       pyramid=PyramidConfig(0, 1, 0), backend=backend)
     calls, lists = [], []
     orig_step, orig_list = engine.lm_step, engine.active_list
 
     def counted(*args, **kwargs):
-        calls.append((args[4], args[11:], kwargs))
+        calls.append(args[3:5] + args[11:])
         return orig_step(*args, **kwargs)
 
-    def listed(mask, on_device):
-        lists.append(on_device)
-        return orig_list(mask, on_device)
+    def listed(mask):
+        lists.append(mask)
+        return orig_list(mask)
 
     monkeypatch.setattr(engine, "lm_step", counted)
     monkeypatch.setattr(engine, "active_list", listed)
@@ -582,9 +600,16 @@ def test_sep_path_keeps_host_lists(monkeypatch):
                            [dfm[..., None].astype(np.float32)],
                            make_batch(subsets, None, 0),
                            np.full((3, 2), 0.5, np.float32), device="cpu")
-    assert calls and all(count is None and nxt == (None, None) and not kw
-                         for count, nxt, kw in calls)
-    assert lists == [False] * (len(calls) + 1)  # and the empty last list
+    assert len(lists) == 1 and len(calls) > 1
+    for k, (idx, count, idx_next, count_next) in enumerate(calls):
+        assert count.dtype == count_next.dtype == torch.int32
+        assert count.shape == count_next.shape == (1,)
+        assert idx.shape == idx_next.shape == (len(subsets),)
+        if k:
+            prev = calls[k - 1]
+            assert idx.data_ptr() == prev[2].data_ptr()
+            assert count.data_ptr() == prev[3].data_ptr()
+    assert int(calls[-1][3]) == 0  # the loop stopped at the empty list
     assert (res.error.numpy() == 0).all()
 
 
