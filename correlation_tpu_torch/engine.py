@@ -37,14 +37,15 @@ reads its subsets through the list and its length, and the LM-step
 kernel (ops/solve.lm_step) updates exactly the listed rows and writes
 the next list, the listed subsets still active, in the same launch; the
 positions past the list's length exit at once, which does the cascade's
-job.  So on the card a level of the fused assembly enqueues its initial
-step and the JAX loop's step bound of max_iterations + 2 iterations
-without one host sync, all issued by one call into the kernel library
-(ops/solve.lm_level), and a chained chunk of frame pairs
-(correlate_frames) enqueues whole, from the staged stack to the packed
-result.  A subset's trajectory depends on its own state alone, so this
-is the same arithmetic as the JAX loop (whose compaction is tested
-bit-identical to the monolithic loop).
+job.  So on the card a level of the fused assembly is one CUDA graph
+launch (ops/solve.lm_level) without one host sync: its initial step,
+then a conditional WHILE node that stops, as JAX's while_loop does, at
+the first empty list or at the JAX loop's step bound of max_iterations
++ 2 iterations; and a chained chunk of frame pairs (correlate_frames)
+enqueues whole, from the staged stack to the packed result.  A subset's
+trajectory depends on its own state alone, so this is the same
+arithmetic as the JAX loop (whose compaction is tested bit-identical to
+the monolithic loop).
 
 Subset sharding (mesh=, parallel/mesh.py).  correlate and
 correlate_frames take a mesh of processes, one a card: every rank gets
@@ -197,20 +198,21 @@ def solve_level(
     the other of two buffers that alternate and its length into row k of
     a counts buffer, so the host always knows which is current without a
     read, and the level's lengths stay on the device.  With the fused
-    assembly on the card the level's initial step and max_iterations + 2
-    iterations (the JAX loop's step bound) enqueue without one host read,
-    an iteration past the last active subset costing two launches that
-    exit at once, and since their launches are then fixed before the first
-    is issued, one call into the kernel library (ops/solve.lm_level)
-    issues them all.  Every other level runs the plain loop: it reads each
-    list's length to the host once, before the step (a wait on the card,
-    where only the separable and field assemblies take this loop), and
-    stops at the first empty list.  The results are the same.  While a
-    utils.profiling recording is open, the list length of every step
-    issued is handed to it (a device count by reference, read when the
-    recording closes), and the level is counted (utils.profiling
+    assembly on the card the level is one CUDA graph launch
+    (ops/solve.lm_level) without one host read: the initial step, then a
+    conditional WHILE node that runs iterations while the list is not
+    empty, up to max_iterations + 2 (the JAX loop's step bound), so the
+    device stops the loop where the plain loop stops.  Every other level
+    runs the plain loop: it reads each list's length to the host once,
+    before the step (a wait on the card, where only the separable and
+    field assemblies take this loop), and stops at the first empty list.
+    The results are the same.  While a utils.profiling recording is open,
+    the list length of every step run is handed to it (a device count by
+    reference, read when the recording closes; the graph marks the steps
+    it did not run -1), and the level is counted (utils.profiling
     Recording.add_level), with whether its fused assembly takes K1's
-    split path.
+    split path and whether it ran as one graph launch that had to be
+    instantiated.
     """
     assemble = _make_assemble(cfg, level, static)
     fused = level.def_field is None and not static.sep
@@ -226,15 +228,18 @@ def solve_level(
                         device=params0.device)
     counts = torch.empty((steps, 1), dtype=torch.int32, device=params0.device)
     idx, count = active_list(~skip)
-    first, issued = count, steps
-    # The fused assembly on the card: the level's launches are fixed before
-    # the first is issued, and one call into the kernel library issues them.
+    first, issued, graph = count, steps, None
+    # The fused assembly on the card: one graph launch runs the level and
+    # stops at its first empty list on the device.
     native = fused and params0.device.type == "cuda"
     if native:
-        lm_level(cfg, state, (static.tile_h, static.tile_w, static.img_h,
-                              static.img_w, level.def_img, level.pix),
-                 scaling, n_points, bbox, center, level.img_hw, idx, count,
-                 lists, counts)
+        graph = lm_level(cfg, state, (static.tile_h, static.tile_w,
+                                      static.img_h, static.img_w,
+                                      level.def_img, level.pix),
+                         scaling, n_points, bbox, center, level.img_hw, idx,
+                         count, lists, counts)
+        if graph is None:
+            issued = 0
     else:
         for k in range(steps):
             # The step's one host read; the assembly takes this copy, so
@@ -251,10 +256,12 @@ def solve_level(
     if rec is not None:
         if issued:
             # Step k's list length, on the device: the first list's count
-            # for k = 0, counts[k - 1] after.
+            # for k = 0, counts[k - 1] after; -1 for a step the graph did
+            # not run.
             rec.add_lengths([first, counts[:issued - 1]])
         rec.add_level(native,
-                      fused and v2.subset_chunks(level.pix.shape[-1]) > 1)
+                      fused and v2.subset_chunks(level.pix.shape[-1]) > 1,
+                      graph is not None, graph == "instantiated")
     return LevelResult(state.p_cur, state.chi_lg, state.reached,
                        state.error, state.init_fail)
 

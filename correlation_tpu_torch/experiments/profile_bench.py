@@ -116,11 +116,13 @@ def main() -> dict[str, float]:
 
         wall = times[f"solve_level_L{lvl}"] = cuda_time_ms(solve, 5)
         torch.cuda.synchronize()
+        lm.resolve_launches()
         launches = lm.LAUNCHES
         t0 = time.perf_counter()
         res = solve()
         issue = times[f"issue_L{lvl}"] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
+        lm.resolve_launches()
         loops = lm.LAUNCHES - launches  # the initial step and the loop's
         print(f"solve_level L{lvl}:       {wall:9.3f} ms wall, {issue:.3f} ms "
               f"host issue  (iters reached: {res.reached.float().mean():.2f}; "

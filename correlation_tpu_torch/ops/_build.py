@@ -163,9 +163,12 @@ def load_library():
             lib.lm_level_launch.restype = i32
             lib.lm_level_launch.argtypes = k1 + state + [
                 vp, i32,  # flags, flag_capacity
-                vp, vp, i32, vp,  # lists, counts, steps, failed (int[2])
+                vp, vp, i32, vp,  # lists, counts, steps, info (int[4])
                 vp,  # stream
             ]
+            lib.lm_level_steps.restype = i32
+            lib.lm_level_steps.argtypes = [
+                vp, vp, i32, vp]  # rows, totals, cap, stream
             lib.lm_step_flags.restype = i32
             lib.lm_step_flags.argtypes = [i32]  # n
             lib.lm_step_workspace_words.restype = i32

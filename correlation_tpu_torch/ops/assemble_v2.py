@@ -48,6 +48,7 @@ import torch
 
 from correlation_tpu_torch.config import FittingModel, Interpolation
 from correlation_tpu_torch.models.warp import steepest_descent, warp_points
+from correlation_tpu_torch.ops import solve
 
 # Rows of the per-subset pixel array [S, 8, P].
 ROW_X = 0
@@ -61,8 +62,9 @@ ROW_UND = 5  # undeformed intensities, rows 5 .. 5 + C (C <= 3)
 # shape: {(p_len, tile_h, tile_w): [launches, list positions launched]}.
 # The second counter is the list's capacity, not its work: where the
 # list's length stays on the device (`count`) the launch covers every
-# position and those past the length exit at once.  Callers reset them
-# with reset_launches().
+# position and those past the length exit at once.  The steps that
+# ops/solve.lm_level's graphs ran are added by ops/solve.resolve_launches.
+# Callers reset them with reset_launches().
 LAUNCHES = 0
 LAUNCHES_BY_SHAPE: dict[tuple[int, int, int], list[int]] = {}
 
@@ -136,8 +138,11 @@ def tile_in_shared(tile_h: int, tile_w: int, channels: int, threads: int,
 
 
 def reset_launches() -> None:
-    """Zero LAUNCHES and LAUNCHES_BY_SHAPE."""
+    """Zero LAUNCHES and LAUNCHES_BY_SHAPE, after
+    ops/solve.resolve_launches() has added the steps that graphs launched
+    before ran."""
     global LAUNCHES
+    solve.resolve_launches()
     LAUNCHES = 0
     LAUNCHES_BY_SHAPE.clear()
 

@@ -38,9 +38,16 @@ from correlation_tpu_torch.models.warp import warp_points
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 
-# Launches of the LM-step kernel (CUDA tensors only); reset_launches()
-# zeroes it.
+# Launches of the LM-step kernel (CUDA tensors only): lm_step's, one a
+# call, and the steps that lm_level's graphs ran, which resolve_launches()
+# reads from the device and adds; reset_launches() zeroes it.
 LAUNCHES = 0
+
+# The devices where an lm_level graph was launched since
+# resolve_launches() last read the steps the graphs ran, and the steps
+# each graph had run then, {(device index, graph id): steps}.
+_GRAPH_DEVICES: set[int] = set()
+_STEPS_READ: dict[tuple[int, int], int] = {}
 
 # The kernel's scan workspaces, {(device index, list room n): (int64
 # tensor of the flags, two sets of group words and the launches' epoch;
@@ -52,9 +59,60 @@ _WORKSPACES: dict = {}
 
 
 def reset_launches() -> None:
-    """Zero LAUNCHES."""
+    """Zero LAUNCHES, after resolve_launches() has added the steps that
+    graphs launched before ran."""
     global LAUNCHES
+    resolve_launches()
     LAUNCHES = 0
+
+
+def resolve_launches() -> None:
+    """Add the steps that lm_level's graphs ran since the last call to the
+    launch counters: a step is one LM-step launch here and one
+    fused_assemble launch over the list room in assemble_v2's.  Where a
+    graph was launched since the last call, reads the graphs' totals of
+    steps on its device (_graph_totals: a sync); else does nothing."""
+    global LAUNCHES
+    if not _GRAPH_DEVICES:
+        return
+    from correlation_tpu_torch.ops import assemble_v2 as v2
+    from correlation_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for device in sorted(_GRAPH_DEVICES):
+        for graph, p_len, tile_h, tile_w, n, total in _graph_totals(lib,
+                                                                   device):
+            steps = total - _STEPS_READ.get((device, graph), 0)
+            _STEPS_READ[(device, graph)] = total
+            if steps:
+                v2.count_launches(p_len, tile_h, tile_w, n, steps)
+                LAUNCHES += steps
+    _GRAPH_DEVICES.clear()
+
+
+def _graph_totals(lib, device: int) -> list[list[int]]:
+    """A row (graph id, padded pixels, tile_h, tile_w, list room n, steps
+    run in all) for each lm_level graph on CUDA device `device`: after
+    the device's work, the library's lm_level_steps copies the totals
+    into a tensor, which is read once."""
+    def checked(m):
+        if m < 0:
+            msg = lib.fused_assemble_error_string(-m).decode()
+            raise RuntimeError(f"lm_level_steps failed: {msg}")
+        return m
+
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(device):
+        m = checked(lib.lm_level_steps(None, None, 0, None))  # the graphs
+        torch.cuda.synchronize()
+        rows = (ctypes.c_longlong * (5 * m))()
+        totals = torch.zeros(m, dtype=torch.int64, device=f"cuda:{device}")
+        if m:
+            checked(lib.lm_level_steps(
+                rows, ptr(totals.data_ptr()), m,
+                ptr(torch.cuda.current_stream().cuda_stream)))
+        return [list(rows[5 * i:5 * i + 5]) + [total]
+                for i, total in enumerate(totals.tolist())]
 
 
 def _chol_solve_cols(a, b, n):
@@ -431,28 +489,41 @@ def _state_args(cfg: SolverConfig, state: LMState, scaling, n_points, bbox,
     )
 
 
+# lm_level_launch's info[0], the stage a failed call came from, and
+# info[2], the kernel whose plan or capture failed (-1: none); info[3],
+# what it did with the level's graph.
+_STAGES = ("", "plan", "capture", "instantiation", "update", "launch")
+_KERNELS = ("fused_assemble", "lm_step", "level_control")
+_MADE = ("updated", "instantiated")
+
+
 def lm_level(cfg: SolverConfig, state: LMState, assembly, scaling,
              n_points, bbox, center, img_hw, idx, count, lists,
-             counts) -> None:
-    """A pyramid level's LM loop on the card, on a device list, in one
-    call into the kernel library: the initial step and counts.shape[0] - 1
-    iterations, each the fused assembly (assemble_v2.fused_assemble) of
-    the current list at state.p_cur and lm_step on it, which writes the
-    next list.  The same launches, in the same order and with the same
-    arguments, as that loop issued step by step from Python, so the same
-    results; nothing is read back.
+             counts) -> str | None:
+    """A pyramid level's LM loop on the card, on a device list, as one
+    CUDA graph launch (csrc/lm_level.cu): the initial step, then a
+    conditional WHILE node that runs an iteration while the list is not
+    empty, at most counts.shape[0] - 1 of them; each step is the fused
+    assembly (assemble_v2.fused_assemble) of the current list at
+    state.p_cur and lm_step on it, which writes the next list.  Their
+    launches are captured from the library's launchers with the per-step
+    wrappers' arguments, so the results equal that loop's; nothing is
+    read back.
 
     assembly: the fused assembly's inputs after its model and
     interpolation and before its center, (tile_h, tile_w, img_h, img_w,
     img, pix); it reads `center` and `bbox` as the step does.  idx, count:
     the first list (int32 [n], its length int32 [1] on the device); lists:
-    int32 [2, n], the rows that alternate as the next list (step k writes
-    row k % 2); counts: int32 [steps, 1], step k's next length in row k.
-    The other arguments are lm_step's.  Every tensor is checked once, as
-    the wrappers check them at each step.  Adds the launches to
-    assemble_v2's and this module's counters.  CUDA tensors only.
+    int32 [2, n], rows the graph overwrites; counts: int32 [steps, 1],
+    row k step k's next length where step k + 1 runs, else -1.  The other
+    arguments are lm_step's.  Every tensor is checked once, as the
+    wrappers check them at each step.  The steps that the graph runs
+    reach assemble_v2's and this module's launch counters through
+    resolve_launches().  Returns what the library did with the level's
+    graph, "updated" (a graph of the same key kept, its arguments set
+    anew) or "instantiated", or None for an empty list room (no launch).
+    CUDA tensors only.
     """
-    global LAUNCHES
     from correlation_tpu_torch.ops import assemble_v2 as v2
 
     tile_h, tile_w, img_h, img_w, img, pix = assembly
@@ -473,11 +544,11 @@ def lm_level(cfg: SolverConfig, state: LMState, assembly, scaling,
     if dev.type != "cuda":
         raise ValueError(f"lm_level runs on a CUDA device, not {dev}")
     if n == 0:
-        counts.zero_()
-        return
+        counts.fill_(-1)
+        return None
     out = torch.empty((n, 8, 8), dtype=torch.float32, device=dev)
     _check_step(state, out, idx, count, scaling, n_points, bbox, center,
-                lists[0], counts[0])
+                lists[1], counts[0])
     if (out.data_ptr() | state.ab.data_ptr()) % 16:
         raise ValueError("out and ab must be 16-byte aligned (the kernel "
                          "reads their rows 16 bytes at a time)")
@@ -488,19 +559,20 @@ def lm_level(cfg: SolverConfig, state: LMState, assembly, scaling,
     k1, work = v2.launch_args(cfg.model, cfg.interpolation, tile_h, tile_w,
                               img_h, img_w, img, pix, center, state.p_cur,
                               bbox, idx, count, out)
-    failed = (ctypes.c_int * 2)()
+    info = (ctypes.c_int * 4)()
     ptr = ctypes.c_void_p
     rc = lib.lm_level_launch(
         *k1, *_state_args(cfg, state, scaling, n_points, bbox, center,
                           img_hw),
         ptr(ws.data_ptr()), flags, ptr(lists.data_ptr()),
-        ptr(counts.data_ptr()), steps, failed,
+        ptr(counts.data_ptr()), steps, info,
         ptr(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:
-        what = "lm_step" if failed[1] else "fused_assemble"
         msg = lib.fused_assemble_error_string(rc).decode()
-        raise RuntimeError(f"lm_level: step {failed[0]} of {steps}, "
-                           f"{what} kernel launch failed: {msg}")
-    v2.count_launches(pix.shape[2], tile_h, tile_w, n, steps)
-    LAUNCHES += steps
+        where = (f" at step {info[1]} of {steps}, {_KERNELS[info[2]]} "
+                 "kernel" if info[2] >= 0 else "")
+        raise RuntimeError(f"lm_level: the level's graph "
+                           f"{_STAGES[info[0]]} failed{where}: {msg}")
+    _GRAPH_DEVICES.add(dev.index)
+    return _MADE[info[3]]

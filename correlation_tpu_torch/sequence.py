@@ -73,6 +73,7 @@ from correlation_tpu_torch.engine import (
     resolve_device,
 )
 from correlation_tpu_torch.models.warp import warp_points
+from correlation_tpu_torch.ops import solve
 from correlation_tpu_torch.ops.pyramid import build_pyramid
 from correlation_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_flag
 from correlation_tpu_torch.utils.profiling import (
@@ -418,7 +419,9 @@ def run_sequence(
         rank 0 only; the checkpoint is written by rank 0 only.
 
     Returns:
-      One FrameRecord per frame pair solved.
+      One FrameRecord per frame pair solved.  By then the records are on
+      the host, and the launch counters hold the steps the card's LM
+      graphs ran (ops/solve.resolve_launches).
     """
     n_frames = len(frames)
     check_channels(cfg.solver, np.shape(frames[0]), "the frames")
@@ -546,6 +549,7 @@ def run_sequence(
         _run_chunked(frames, cfg, state, batch_for(False), start_frame,
                      device, mesh, emit, save_ckpt, measured, should_stop,
                      checkpoint_path is not None, checkpoint_every)
+        solve.resolve_launches()
         return records
 
     pyramids: dict[int, list] = {}
@@ -600,6 +604,7 @@ def run_sequence(
             save_ckpt(frame + 1)
         if stop_now:
             break
+    solve.resolve_launches()
     return records
 
 

@@ -4,11 +4,11 @@ trace_region and start_trace / stop_trace are the JAX package's profiler
 hooks on torch.profiler: a region is a record_function range while a
 profiler runs, and a trace is a Chrome trace file.  recording() keeps the
 same regions in memory instead (spans on the host's clock, with their
-parents) and counts the LM loop's steps and empty steps and its levels,
-for a caller that reads them itself.  With neither open, a region costs
-one flag check and one query of the profiler's state.  The span names
-the program opens are the constants below; traced and trace_each open
-them around a function's calls and a loop's passes.
+parents) and counts the LM loop's steps run, its empty steps and its
+levels, for a caller that reads them itself.  With neither open, a
+region costs one flag check and one query of the profiler's state.  The
+span names the program opens are the constants below; traced and
+trace_each open them around a function's calls and a loop's passes.
 
 SolveMeter is the JAX package's always-on solves/s meter
 (correlation_tpu/utils/profiling.py).  It reads the host's clock around
@@ -38,6 +38,8 @@ import time
 
 import torch
 
+from correlation_tpu_torch.ops import solve
+
 
 # The spans the program opens, from the sequence layer down to one
 # pyramid level's LM loop; none is opened inside the loop.
@@ -66,21 +68,25 @@ class Span:
 
 class Recording:
     """What recording() collects: `spans` in the order they opened, and
-    `counters`: `steps`, the LM steps issued, and `empty_steps`, those
-    issued on an empty list; `levels`, the pyramid levels' LM loops
-    issued, `native_levels`, those issued by one call into the kernel
-    library, and `split_levels`, those whose fused assembly took K1's
-    split path (ops/assemble_v2.subset_chunks above 1); `batches`, the
-    subset batches run_sequence built, and `batches_on_device`, those
-    built on a card.  A step's list length may be a device tensor; such
-    lengths are read when the recording closes."""
+    `counters`: `steps`, the LM steps run, and `empty_steps`, those run
+    on an empty list; `levels`, the pyramid levels' LM loops issued,
+    `native_levels`, those issued by one call into the kernel library,
+    `split_levels`, those whose fused assembly took K1's split path
+    (ops/assemble_v2.subset_chunks above 1), `graph_levels`, those run
+    as one CUDA graph launch, and `graph_instantiations`, those whose
+    graph had to be instantiated; `batches`, the subset batches
+    run_sequence built, and `batches_on_device`, those built on a card.
+    A step's list length may be a device tensor; such lengths are read
+    when the recording closes, and a negative one is a step that did not
+    run."""
 
     def __init__(self):
         self.spans: list[Span] = []
         self.counters: dict[str, int] = {}
         self._open: list[int] = []
         self._lengths: list = []  # ints, and int32 tensors of lengths
-        self._levels = [0, 0, 0]  # levels, native levels, split levels
+        # levels, native, split, graph levels, graph instantiations
+        self._levels = [0, 0, 0, 0, 0]
         self._batches = [0, 0]  # batches, those built on a card
 
     @contextlib.contextmanager
@@ -96,17 +102,20 @@ class Recording:
             self._open.pop()
 
     def add_lengths(self, lengths: list) -> None:
-        """The list lengths of LM steps issued (ints, and int32 tensors of
-        lengths that the steps write on the device); nothing is read
-        until the recording closes."""
+        """The list lengths of LM steps (ints, and int32 tensors of
+        lengths that the steps write on the device, -1 for a step that
+        did not run); nothing is read until the recording closes."""
         self._lengths += lengths
 
-    def add_level(self, native: bool, split: bool) -> None:
+    def add_level(self, native: bool, split: bool, graph: bool = False,
+                  instantiated: bool = False) -> None:
         """One pyramid level's LM loop issued; `native`: by one call into
-        the kernel library; `split`: its assembly on K1's split path."""
-        self._levels[0] += 1
-        self._levels[1] += bool(native)
-        self._levels[2] += bool(split)
+        the kernel library; `split`: its assembly on K1's split path;
+        `graph`: run as one CUDA graph launch, which had to be
+        `instantiated`."""
+        for i, flag in enumerate((True, native, split, graph,
+                                  graph and instantiated)):
+            self._levels[i] += bool(flag)
 
     def add_batch(self, on_device: bool) -> None:
         """One subset batch built by run_sequence; `on_device`: on a
@@ -116,15 +125,18 @@ class Recording:
 
     def _resolve(self) -> None:
         """Read every deferred length (one copy to the host) and count the
-        steps and the empty ones."""
+        steps run and the empty ones."""
         tensors = [x.reshape(-1) for x in self._lengths if torch.is_tensor(x)]
         lengths = torch.cat(tensors).tolist() if tensors else []
         lengths += [int(x) for x in self._lengths if not torch.is_tensor(x)]
+        lengths = [x for x in lengths if x >= 0]
         self.counters = {"steps": len(lengths),
                          "empty_steps": lengths.count(0),
                          "levels": self._levels[0],
                          "native_levels": self._levels[1],
                          "split_levels": self._levels[2],
+                         "graph_levels": self._levels[3],
+                         "graph_instantiations": self._levels[4],
                          "batches": self._batches[0],
                          "batches_on_device": self._batches[1]}
         self._lengths = []
@@ -173,9 +185,10 @@ def current_recording() -> Recording | None:
 @contextlib.contextmanager
 def recording():
     """Record the program's spans and counters in memory while the block
-    runs; yields the Recording.  On exit the device is synchronised once
-    and the LM steps' list lengths are read.  One at a time: a second
-    raises RuntimeError."""
+    runs; yields the Recording.  On exit the device is synchronised once,
+    the LM steps' list lengths are read, and the launch counters take the
+    steps that the LM loop's graphs ran (ops/solve.resolve_launches).  One
+    at a time: a second raises RuntimeError."""
     if _RECORDING:
         raise RuntimeError("a recording is already open")
     rec = Recording()
@@ -187,6 +200,7 @@ def recording():
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         rec._resolve()
+        solve.resolve_launches()
 
 
 _TRACE: list = []  # the running trace: [(profiler, logdir)]

@@ -1,16 +1,20 @@
 """The one-call LM level (ops/solve.lm_level, csrc/lm_level.cu) on the
 CPU: what can be checked without a card.
 
-On the card engine.solve_level issues a level's 53 steps (K1 and the LM
-step each) by one call into the kernel library.  Here: the ctypes
+On the card engine.solve_level runs a level's LM loop (K1 and the LM step
+a step, at most 53 steps) as one CUDA graph launch, by one call into the
+kernel library.  Here: the ctypes
 signatures the library is loaded with, and the argument tuples the
-wrappers build, against the C parameter lists of the sources; the launch
-counters added in bulk against the same launches counted one by one; the
-wrapper's argument checks; and solve_level on the CPU keeping its
-per-step loop.  The kernels themselves, and the level against the
+wrappers build, against the C parameter lists of the sources; the names
+the wrapper gives the library's reports against the source's enums; the
+launch counters added in bulk against the same launches counted one by
+one, and the steps the graphs ran added to them from a stand-in for the
+library's totals; the wrapper's argument checks; and solve_level on the
+CPU keeping its per-step loop.  The kernels themselves, and the level against the
 per-step loop bit for bit, are tests_gpu/test_lm_step_gpu.py's.
 """
 
+import contextlib
 import ctypes
 import re
 import types
@@ -56,7 +60,7 @@ def fake_library(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["fused_assemble_launch", "lm_step_launch",
-                                  "lm_level_launch"])
+                                  "lm_level_launch", "lm_level_steps"])
 def test_ctypes_signatures_match_the_sources(fake_library, name):
     assert len(getattr(fake_library, name).argtypes) == _c_params(name)
 
@@ -112,8 +116,31 @@ def test_argument_tuples_match_the_sources(level):
     # arguments, idx_next, count_next, flags, flag_capacity, stream.
     assert 7 + len(state) + 5 == _c_params("lm_step_launch")
     # lm_level_launch: K1's, the state arguments, flags, flag_capacity,
-    # lists, counts, steps, failed, stream.
+    # lists, counts, steps, info, stream.
     assert len(k1) + len(state) + 7 == _c_params("lm_level_launch")
+
+
+def _c_enum(name: str) -> list[str]:
+    """The enumerators of the enum `name` in csrc/lm_level.cu, in order."""
+    src = (_build._PKG / "csrc" / "lm_level.cu").read_text()
+    body = re.search(rf"enum {name} \{{([^}}]*)\}}", src).group(1)
+    return [e.split("=")[0].strip() for e in body.split(",")]
+
+
+def test_graph_reports_follow_the_source():
+    """The names lm_level gives the library's info words: a stage a
+    failure came from, the kernel whose plan or capture failed, what the
+    call did with the level's graph, in the order of the C enums."""
+    assert _c_enum("Stage") == ["kOk", "kPlan", "kCapture", "kInstantiate",
+                                "kUpdate", "kLaunch"]
+    assert solve._STAGES[1:] == ("plan", "capture", "instantiation",
+                                 "update", "launch")
+    assert _c_enum("Kernel") == ["kNoKernel", "kK1", "kLmStep", "kControl"]
+    assert solve._KERNELS == ("fused_assemble", "lm_step", "level_control")
+    assert _c_enum("Made") == ["kUpdated", "kInstantiated"]
+    assert solve._MADE == ("updated", "instantiated")
+    assert "kNoKernel = -1" in (_build._PKG / "csrc" / "lm_level.cu"
+                                ).read_text()
 
 
 def test_split_path_arguments_carry_a_workspace(level):
@@ -138,6 +165,111 @@ def test_launches_counted_in_bulk_equal_one_by_one():
     assert (v2.LAUNCHES, v2.LAUNCHES_BY_SHAPE) == one_by_one
     assert one_by_one == (53, {(441, 40, 40): [53, 53 * 4096]})
     v2.reset_launches()
+
+
+@pytest.fixture
+def graph_totals(monkeypatch):
+    """A stand-in for the graphs' totals on the card: {device: rows of
+    (graph id, padded pixels, tile_h, tile_w, list room n, steps run in
+    all)} that a test fills, read by solve._graph_totals, whose calls
+    (the devices read) are listed; no totals read before, and the launch
+    counters zeroed before and after."""
+    totals, reads = {}, []
+
+    def read(lib, device):
+        reads.append(device)
+        return [list(row) for row in totals[device]]
+
+    v2.reset_launches()
+    solve.reset_launches()
+    monkeypatch.setattr(_build, "load_library", types.SimpleNamespace)
+    monkeypatch.setattr(solve, "_graph_totals", read)
+    monkeypatch.setattr(solve, "_GRAPH_DEVICES", set())
+    monkeypatch.setattr(solve, "_STEPS_READ", {})
+    yield totals, reads
+    solve._GRAPH_DEVICES.clear()
+    v2.reset_launches()
+    solve.reset_launches()
+
+
+def _launched(totals):
+    """Marks the devices of `totals` as having launched a graph, as
+    lm_level does."""
+    solve._GRAPH_DEVICES.update(totals)
+
+
+@pytest.mark.parametrize("rows", [
+    {0: [(0, 441, 40, 40, 4096, 2)]},
+    {0: [(0, 441, 40, 40, 4096, 3), (1, 441, 40, 40, 512, 5),
+         (2, 121, 24, 24, 512, 9)]},
+    {0: [(0, 441, 40, 40, 64, 4)], 1: [(0, 441, 40, 40, 64, 6)]}],
+    ids=["one", "shared-shape", "two-devices"])
+def test_resolve_launches_counts_the_steps_run(graph_totals, rows):
+    """After graph levels, resolve_launches adds each graph's steps run
+    to both launch counters, one K1 launch over the list room and one LM
+    step a step; later, only the steps run since, on the devices that
+    launched a graph since; then nothing is left to read."""
+    totals, reads = graph_totals
+    totals.update({d: [list(r) for r in rs] for d, rs in rows.items()})
+    _launched(totals)
+    solve.resolve_launches()
+    want = {}
+    for p_len, th, tw, n, k in (r[1:] for rs in rows.values() for r in rs):
+        got = want.setdefault((p_len, th, tw), [0, 0])
+        got[0] += k
+        got[1] += k * n
+    steps = sum(k for k, _ in want.values())
+    assert solve.LAUNCHES == v2.LAUNCHES == steps
+    assert v2.LAUNCHES_BY_SHAPE == want
+    assert reads == sorted(rows)
+    # Two more steps on the first graph of the first device alone.
+    first = min(rows)
+    totals[first][0][5] += 2
+    _launched({first: None})
+    solve.resolve_launches()
+    solve.resolve_launches()
+    assert reads == sorted(rows) + [first]
+    assert solve.LAUNCHES == v2.LAUNCHES == steps + 2
+    key = tuple(totals[first][0][1:4])
+    assert v2.LAUNCHES_BY_SHAPE[key][0] == want[key][0] + 2
+
+
+def test_resolve_launches_without_a_graph_reads_nothing(graph_totals):
+    totals, reads = graph_totals
+    totals[0] = [[0, 441, 40, 40, 4096, 2]]
+    solve.resolve_launches()
+    assert reads == [] and solve.LAUNCHES == v2.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("module", [v2, solve], ids=["assemble_v2", "solve"])
+def test_reset_counts_earlier_graphs_first(graph_totals, module):
+    """Steps that graphs launched before a reset ran are added before the
+    reset zeroes its module's counters, so none reaches a later count."""
+    totals, _ = graph_totals
+    totals[0] = [[0, 441, 40, 40, 4096, 4]]
+    _launched(totals)
+    module.reset_launches()
+    other = solve if module is v2 else v2
+    assert module.LAUNCHES == 0 and other.LAUNCHES == 4
+    _launched(totals)
+    solve.resolve_launches()
+    assert module.LAUNCHES == 0 and other.LAUNCHES == 4
+
+
+def test_resolve_launches_names_a_failure(monkeypatch):
+    """A failed read of the library's totals raises, naming the call and
+    the error, and leaves the device's graphs to be read again."""
+    lib = types.SimpleNamespace(
+        lm_level_steps=lambda *a: -700,
+        fused_assemble_error_string=lambda rc: b"an illegal address")
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(solve, "_GRAPH_DEVICES", {0})
+    with pytest.raises(RuntimeError,
+                       match="lm_level_steps failed: an illegal address"):
+        solve.resolve_launches()
+    assert solve._GRAPH_DEVICES == {0}
 
 
 def _bad(a, what):

@@ -168,7 +168,8 @@ def test_counters_equal_the_steps_issued(monkeypatch, problem, backend):
     levels = PAIRS * _levels(problem)
     assert rec.counters == {"steps": len(issued), "empty_steps": 0,
                             "levels": levels, "native_levels": 0,
-                            "split_levels": 0, "batches": 1,
+                            "split_levels": 0, "graph_levels": 0,
+                            "graph_instantiations": 0, "batches": 1,
                             "batches_on_device": 0}
     assert len(issued) > levels and 0 not in issued
 
@@ -198,6 +199,7 @@ def test_empty_lengths_count_as_empty_steps():
         assert rec.counters == {}  # nothing read while open
     assert rec.counters == {"steps": 6, "empty_steps": 2, "levels": 0,
                             "native_levels": 0, "split_levels": 0,
+                            "graph_levels": 0, "graph_instantiations": 0,
                             "batches": 0, "batches_on_device": 0}
     (span,) = rec.spans
     assert span.name == profiling.ENGINE_SOLVE_LEVEL and span.parent is None
@@ -221,7 +223,44 @@ def test_native_levels_counted():
         assert rec.counters == {}
     assert rec.counters == {"steps": 0, "empty_steps": 0, "levels": 3,
                             "native_levels": 2, "split_levels": 1,
+                            "graph_levels": 0, "graph_instantiations": 0,
                             "batches": 0, "batches_on_device": 0}
+
+
+@pytest.mark.parametrize("made, want", [
+    ([], (0, 0)), (["instantiated"], (1, 1)), (["updated"] * 3, (3, 0)),
+    (["instantiated", "updated", "updated", "instantiated"], (4, 2))],
+    ids=["none", "new", "kept", "mixed"])
+def test_graph_levels_counted(made, want):
+    """A level run as one graph launch is a graph level; one whose graph
+    had to be instantiated is also an instantiation.  A level issued
+    otherwise is neither, whatever it claims."""
+    with profiling.recording() as rec:
+        for what in made:
+            rec.add_level(True, False, True, what == "instantiated")
+        rec.add_level(False, False, False, True)
+    counters = rec.counters
+    assert (counters["graph_levels"], counters["graph_instantiations"]) == (
+        want)
+    assert counters["levels"] == counters["native_levels"] + 1 == len(made) + 1
+
+
+@pytest.mark.parametrize("first, rows, want", [
+    (6, [[5], [3], [-1], [-1]], (3, 0)), (0, [[-1], [-1], [-1]], (1, 1)),
+    (7, [[7], [7], [7], [-1]], (4, 0)), (4, [[0], [-1]], (2, 1))],
+    ids=["stopped", "empty-first-list", "bound", "zero-run"])
+def test_steps_not_run_are_not_counted(first, rows, want):
+    """A level's lengths as solve_level hands them on the card: the
+    first list's count, then the count rows but the last, where the graph
+    writes -1 for each step it did not run; those are dropped, so only
+    the steps run count (steps, empty_steps)."""
+    counts = torch.tensor(rows, dtype=torch.int32)
+    with profiling.recording() as rec:
+        rec.add_lengths([torch.tensor([first], dtype=torch.int32),
+                         counts[:-1]])
+        rec.add_lengths([-1, 2])
+    assert (rec.counters["steps"], rec.counters["empty_steps"]) == (
+        want[0] + 1, want[1])
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
@@ -259,3 +298,44 @@ def test_make_batch_span_encloses_the_build(monkeypatch, problem):
     assert [c[0] for c in calls] == ["FlatPoints", "build_batch"]
     for _, t0, t1 in calls:
         assert any(s.start_ns <= t0 <= t1 <= s.end_ns for s in spans)
+
+
+def test_recording_resolves_the_launch_counters(monkeypatch):
+    """A recording's close adds the steps that the LM loop's graphs ran
+    to the launch counters (ops/solve.resolve_launches), after its one
+    sync: here a stand-in for the card's totals, one graph that ran 7
+    steps."""
+    import types
+
+    from correlation_tpu_torch.ops import _build, solve
+    from correlation_tpu_torch.ops import assemble_v2 as v2
+
+    v2.reset_launches()
+    solve.reset_launches()
+    monkeypatch.setattr(_build, "load_library", types.SimpleNamespace)
+    monkeypatch.setattr(solve, "_graph_totals",
+                        lambda lib, device: [[0, 441, 40, 40, 16, 7]])
+    monkeypatch.setattr(solve, "_STEPS_READ", {})
+    monkeypatch.setattr(solve, "_GRAPH_DEVICES", {0})
+    with profiling.recording():
+        assert solve.LAUNCHES == 0
+    assert (solve.LAUNCHES, v2.LAUNCHES) == (7, 7)
+    assert v2.LAUNCHES_BY_SHAPE == {(441, 40, 40): [7, 7 * 16]}
+    assert not solve._GRAPH_DEVICES
+    v2.reset_launches()
+    solve.reset_launches()
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_run_sequence_returns_with_the_launches_resolved(problem,
+                                                         monkeypatch, path):
+    """run_sequence reads the launch counters' pending graph steps once
+    (ops/solve.resolve_launches), on either loop, so that they are
+    current when a caller reads them after it returns."""
+    from correlation_tpu_torch.ops import solve
+
+    calls = []
+    monkeypatch.setattr(solve, "resolve_launches",
+                        lambda: calls.append("resolved"))
+    assert len(_run(problem, PATHS[path][0])) == PAIRS
+    assert calls == ["resolved"]

@@ -13,6 +13,7 @@ and engine.active_list's, over problems.lm_step_list's lists at 1, 37,
 from a CUDA graph replayed twice.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from correlation_tpu_torch import engine
-from correlation_tpu_torch.config import FittingModel
+from correlation_tpu_torch.config import ErrorCode, FittingModel
 from correlation_tpu_torch.domains import SubsetBatch
 from correlation_tpu_torch.engine import active_list, correlate_frames
 from correlation_tpu_torch.ops import assemble_v2 as v2
@@ -244,7 +245,7 @@ def test_chunk_enqueues_without_a_host_sync(dev):
     gb = batch.to_device(dev)
     p0 = torch.as_tensor(params0, device=dev)
     torch.cuda.synchronize()
-    before = solve.LAUNCHES
+    solve.reset_launches()
     lists = []
     orig = engine.active_list
 
@@ -253,13 +254,17 @@ def test_chunk_enqueues_without_a_host_sync(dev):
         return orig(mask)
 
     engine.active_list = counted
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = correlate_frames(cfg, stack_dev, gb, p0, device=dev)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-        engine.active_list = orig
-    assert solve.LAUNCHES - before == 3 * 3 * (cfg.max_iterations + 3)
+    with profiling.recording() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = correlate_frames(cfg, stack_dev, gb, p0, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            engine.active_list = orig
+    # The LM-step kernel ran the steps the graphs ran: at least two a
+    # level of each pair, fewer than the levels' bound of 53.
+    assert solve.LAUNCHES == rec.counters["steps"]
+    assert 2 * 3 * 3 <= solve.LAUNCHES < 3 * 3 * (cfg.max_iterations + 3)
     assert len(lists) == 3 * 3  # once a level of each pair
     cpu = correlate_frames(cfg, stack, batch, params0, device="cpu")
     for key in ("params", "chi", "iterations", "error"):
@@ -310,18 +315,27 @@ def _guesses(n, lvl, dev, seed=1):
     return torch.as_tensor(p, device=dev)
 
 
-def _stepwise_level(cfg, level, params0, skip, static):
-    """solve_level's device-list loop as the per-step wrappers issue it:
-    (LevelResult, counts, each step's list length)."""
+def _level_inputs(cfg, level, params0, skip):
+    """solve_level's state and step inputs of a level: (state, scaling,
+    n_points, bbox, center, idx, count), the first list active_list's."""
     state = solve.LMState.start(cfg, params0)
     n_points = level.n_points.contiguous()
     scaling = torch.where(n_points > 0, 1.0 / n_points.clamp(min=1.0), 0.0)
     bbox, center = level.bbox.contiguous(), level.center.contiguous()
-    s, steps = params0.shape[0], cfg.max_iterations + 3
+    return (state, scaling, n_points, bbox, center, *active_list(~skip))
+
+
+def _stepwise_level(cfg, level, params0, skip, static, steps=None):
+    """solve_level's device-list loop as the per-step wrappers issue it,
+    all `steps` (the level's budget by default): (LevelResult, counts,
+    each step's list length)."""
+    state, scaling, n_points, bbox, center, idx, count = _level_inputs(
+        cfg, level, params0, skip)
+    s = params0.shape[0]
+    steps = steps or cfg.max_iterations + 3
     lists = torch.zeros((2, s), dtype=torch.int32, device=params0.device)
     counts = torch.empty((steps, 1), dtype=torch.int32,
                          device=params0.device)
-    idx, count = active_list(~skip)
     lengths = [count]
     for k in range(steps):
         out = v2.fused_assemble(cfg.model, cfg.interpolation, static.tile_h,
@@ -337,9 +351,64 @@ def _stepwise_level(cfg, level, params0, skip, static):
     return res, counts, torch.cat(lengths[:steps]).tolist()
 
 
+def _steps_run(lengths):
+    """The list lengths of the steps the card's graph runs: up to the
+    first empty list, as the plain loop, but the initial step always."""
+    k = lengths.index(0) if 0 in lengths else len(lengths)
+    return lengths[:max(k, 1)]
+
+
+def _graph_counts(lengths, steps):
+    """The counts buffer the graph leaves: step k's next length where
+    step k + 1 runs, else -1."""
+    k = len(_steps_run(lengths))
+    return lengths[1:k] + [-1] * (steps - k + 1)
+
+
 def _launches():
     return (v2.LAUNCHES, solve.LAUNCHES,
             {k: list(v) for k, v in v2.LAUNCHES_BY_SHAPE.items()})
+
+
+def _graph_level(monkeypatch, cfg, level, p0, skip, static):
+    """solve_level on the card under a recording: (LevelResult, the counts
+    buffer lm_level filled, what it did with the graph, the recording's
+    counters)."""
+    captured = []
+    real = engine.lm_level
+
+    def capture(*args):
+        made = real(*args)
+        captured.append((args[-1], made))
+        return made
+
+    monkeypatch.setattr(engine, "lm_level", capture)
+    with profiling.recording() as rec:
+        got = engine.solve_level(cfg, level, p0, skip, static)
+    monkeypatch.setattr(engine, "lm_level", real)
+    ((counts, made),) = captured
+    return got, counts, made, rec.counters
+
+
+def _check_graph_level(cfg, level, got, counts, made, counters, want,
+                       lengths):
+    """The graph's level against the per-step loop's: every state tensor
+    bit for bit, the count rows of the steps run, -1 after, and the
+    recording's counters over the steps run."""
+    steps = cfg.max_iterations + 3
+    run = _steps_run(lengths)
+    torch.cuda.synchronize()
+    for name, a in got._asdict().items():
+        assert same_bits(a, want._asdict()[name]), name
+    assert counts.reshape(-1).tolist() == _graph_counts(lengths, steps)
+    assert made in ("instantiated", "updated")
+    assert counters == {"steps": len(run), "empty_steps": run.count(0),
+                        "levels": 1, "native_levels": 1,
+                        "split_levels": int(v2.subset_chunks(
+                            level.pix.shape[-1]) > 1),
+                        "graph_levels": 1,
+                        "graph_instantiations": int(made == "instantiated"),
+                        "batches": 0, "batches_on_device": 0}
 
 
 @pytest.mark.parametrize("kind, lvl, skipped", [
@@ -348,10 +417,12 @@ def _launches():
     ("blob", 0, False), ("blob", 2, False)])
 def test_native_level_equals_the_stepwise_loop(dev, monkeypatch, kind, lvl,
                                                skipped):
-    """solve_level's one call against the level's 53 steps issued through
-    v2.fused_assemble and lm_step: the LevelResult and the counts buffer
-    bit for bit, the launch counters and the recording's counters the
-    same.  The blob takes K1's split path."""
+    """solve_level's one graph launch against the level's 53 steps issued
+    through v2.fused_assemble and lm_step: the LevelResult bit for bit,
+    the count rows of the steps the graph ran, and the recorded steps and
+    the launch counters (those 53 launches each for the per-step loop)
+    the plain loop's steps, which stop at the first empty list.  The blob
+    takes K1's split path."""
     cfg, levels, statics = _levels_of(kind)
     level, static = levels[lvl], statics[lvl]
     s = level.pix.shape[0]
@@ -364,42 +435,129 @@ def test_native_level_equals_the_stepwise_loop(dev, monkeypatch, kind, lvl,
             :s // 3].to(dev)] = True
     v2.reset_launches()
     solve.reset_launches()
-    want, want_counts, lengths = _stepwise_level(cfg, level, p0, skip,
-                                                 static)
+    want, _, lengths = _stepwise_level(cfg, level, p0, skip, static)
     stepwise = _launches()
-    captured = []
-    real = engine.lm_level
-
-    def capture(*args):
-        captured.append(args[-1])
-        return real(*args)
-
-    monkeypatch.setattr(engine, "lm_level", capture)
     v2.reset_launches()
     solve.reset_launches()
-    with profiling.recording() as rec:
-        got = engine.solve_level(cfg, level, p0, skip, static)
-    assert _launches() == stepwise
-    assert stepwise[:2] == (cfg.max_iterations + 3,) * 2
-    (counts,) = captured
+    got, counts, made, counters = _graph_level(monkeypatch, cfg, level, p0,
+                                               skip, static)
+    steps = cfg.max_iterations + 3
+    assert stepwise[:2] == (steps, steps)
+    k = len(_steps_run(lengths))
+    assert _launches() == (k, k, {key: [k, k * m // steps]
+                                  for key, (_, m) in stepwise[2].items()})
+    _check_graph_level(cfg, level, got, counts, made, counters, want,
+                       lengths)
+    assert lengths[0] == int((~skip).sum())
+    assert 1 < len(_steps_run(lengths)) < cfg.max_iterations + 3
+    assert counters["empty_steps"] == 0
+
+
+@pytest.mark.parametrize("kind", ["grid", "blob"])
+def test_native_level_with_an_empty_first_list(dev, monkeypatch, kind):
+    """Every subset skipped: the graph runs the initial step alone, on an
+    empty list (the one empty step a level can run), and leaves the
+    state as the per-step loop does."""
+    cfg, levels, statics = _levels_of(kind)
+    level, static = levels[2], statics[2]
+    s = level.pix.shape[0]
+    p0 = _guesses(s, 2, dev)
+    skip = torch.ones(s, dtype=torch.bool, device=dev)
+    want, _, lengths = _stepwise_level(cfg, level, p0, skip, static)
+    assert set(lengths) == {0}
+    got, counts, made, counters = _graph_level(monkeypatch, cfg, level, p0,
+                                               skip, static)
+    _check_graph_level(cfg, level, got, counts, made, counters, want,
+                       lengths)
+    assert (counters["steps"], counters["empty_steps"]) == (1, 1)
+
+
+def test_native_level_to_max_iterations(dev, monkeypatch):
+    """Precision 0: no subset converges, each runs to max_iterations
+    (MAX_ITERS_REACHED) or an error, so the graph's loop runs far past
+    the usual two iterations; bit for bit with the per-step loop."""
+    cfg, levels, statics = _levels_of("annulus")
+    cfg = dataclasses.replace(cfg, precision=0.0)
+    level, static = levels[2], statics[2]
+    s = level.pix.shape[0]
+    p0 = _guesses(s, 2, dev)
+    skip = torch.zeros(s, dtype=torch.bool, device=dev)
+    want, _, lengths = _stepwise_level(cfg, level, p0, skip, static)
+    got, counts, made, counters = _graph_level(monkeypatch, cfg, level, p0,
+                                               skip, static)
+    _check_graph_level(cfg, level, got, counts, made, counters, want,
+                       lengths)
+    assert counters["steps"] > 4
+    assert int((got.error == int(ErrorCode.MAX_ITERS_REACHED)).sum()) > 0
+
+
+def _direct_level(cfg, level, p0, skip, static, steps):
+    """ops/solve.lm_level called as solve_level calls it, with `steps`
+    count rows: (LevelResult, counts, what it did)."""
+    state, scaling, n_points, bbox, center, idx, count = _level_inputs(
+        cfg, level, p0, skip)
+    s = p0.shape[0]
+    lists = torch.zeros((2, s), dtype=torch.int32, device=p0.device)
+    counts = torch.empty((steps, 1), dtype=torch.int32, device=p0.device)
+    made = solve.lm_level(cfg, state, (static.tile_h, static.tile_w,
+                                       static.img_h, static.img_w,
+                                       level.def_img, level.pix),
+                          scaling, n_points, bbox, center, level.img_hw, idx,
+                          count, lists, counts)
+    res = engine.LevelResult(state.p_cur, state.chi_lg, state.reached,
+                             state.error, state.init_fail)
+    return res, counts, made
+
+
+@pytest.mark.parametrize("kind", ["grid", "blob"])
+def test_native_level_stops_at_its_step_bound(dev, kind):
+    """A budget of 4 steps on a level whose lists are all non-empty there
+    (precision 0): the graph runs all 4 and stops at the bound, bit for
+    bit with the per-step loop's 4 steps."""
+    cfg, levels, statics = _levels_of(kind)
+    cfg = dataclasses.replace(cfg, precision=0.0)
+    level, static = levels[1], statics[1]
+    s = level.pix.shape[0]
+    p0 = _guesses(s, 1, dev)
+    skip = torch.zeros(s, dtype=torch.bool, device=dev)
+    want, _, lengths = _stepwise_level(cfg, level, p0, skip, static, 4)
+    assert 0 not in lengths
+    got, counts, made = _direct_level(cfg, level, p0, skip, static, 4)
     torch.cuda.synchronize()
     for name, a in got._asdict().items():
         assert same_bits(a, want._asdict()[name]), name
-    assert torch.equal(counts, want_counts)
-    assert rec.counters == {"steps": cfg.max_iterations + 3,
-                            "empty_steps": lengths.count(0), "levels": 1,
-                            "native_levels": 1,
-                            "split_levels": int(v2.subset_chunks(
-                                level.pix.shape[-1]) > 1),
-                            "batches": 0, "batches_on_device": 0}
-    assert lengths[0] == int((~skip).sum())
+    assert counts.reshape(-1).tolist() == _graph_counts(lengths, 4)
+    assert counts.reshape(-1).tolist()[-1] == -1
 
 
-@pytest.mark.parametrize("fault, what", [("k1", "fused_assemble"),
-                                         ("step", "lm_step")])
-def test_native_level_names_the_failing_step(dev, monkeypatch, fault, what):
+def test_native_level_reuses_its_graph(dev, monkeypatch):
+    """A level run again with new tensors takes the graph its key made
+    (updated, not instantiated; graph_instantiations unchanged); the
+    results equal the first run's bit for bit."""
+    cfg, levels, statics = _levels_of("annulus")
+    level, static = levels[1], statics[1]
+    s = level.pix.shape[0]
+    p0 = _guesses(s, 1, dev)
+    skip = torch.zeros(s, dtype=torch.bool, device=dev)
+    first = _graph_level(monkeypatch, cfg, level, p0, skip, static)
+    again = _graph_level(monkeypatch, cfg, level, p0, skip, static)
+    assert again[2] == "updated"
+    assert again[3]["graph_instantiations"] == 0
+    assert again[3]["graph_levels"] == 1
+    torch.cuda.synchronize()
+    for name, a in again[0]._asdict().items():
+        assert same_bits(a, first[0]._asdict()[name]), name
+    assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("fault, stage, what", [
+    ("k1", "plan", "fused_assemble"), ("step", "capture", "lm_step")])
+def test_native_level_names_the_failing_step(dev, monkeypatch, fault, stage,
+                                             what):
     """An argument the library refuses (K1 on a path it has not, a scan
-    workspace too small) raises, naming the step and the kernel."""
+    workspace too small) raises, naming the stage of the level's graph
+    (K1's plan, the capture of the initial step), the step and the
+    kernel; the level runs again after it."""
     cfg, levels, statics = _levels_of("grid")
     p0 = _guesses(4096, 2, dev)
     skip = torch.zeros(4096, dtype=torch.bool, device=dev)
@@ -415,6 +573,14 @@ def test_native_level_names_the_failing_step(dev, monkeypatch, fault, what):
         real = solve._workspace
         monkeypatch.setattr(solve, "_workspace",
                             lambda lib, d, n: (real(lib, d, n)[0], 0))
-    with pytest.raises(RuntimeError, match=f"step 0 of 53, {what} kernel"):
+    with pytest.raises(RuntimeError,
+                       match=f"{stage} failed at step 0 of 53, {what} "
+                             "kernel"):
         engine.solve_level(cfg, levels[2], p0, skip, statics[2])
     torch.cuda.synchronize()
+    monkeypatch.undo()
+    want, _, _ = _stepwise_level(cfg, levels[2], p0, skip, statics[2])
+    got = engine.solve_level(cfg, levels[2], p0, skip, statics[2])
+    torch.cuda.synchronize()
+    for name, a in got._asdict().items():
+        assert same_bits(a, want._asdict()[name]), name

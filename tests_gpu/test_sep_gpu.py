@@ -20,6 +20,7 @@ from correlation_tpu_torch.config import (
     SolverConfig,
 )
 from correlation_tpu_torch.ops import assemble_v2 as v2
+from correlation_tpu_torch.ops import solve
 from correlation_tpu_torch.ops.assemble import sep_assemble
 from correlation_tpu_torch.problems import drifting_sequence, speckle
 
@@ -96,6 +97,7 @@ def test_sep_frames_on_card_equal_cpu(dev, channels, backend):
     v2.reset_launches()
     card = correlate_frames(cfg, frames, make_batch(pts, None, 2), guess,
                             device=dev)
+    solve.resolve_launches()
     assert v2.LAUNCHES == 0
     cpu = correlate_frames(cfg, frames, make_batch(pts, None, 2), guess,
                            device="cpu")
